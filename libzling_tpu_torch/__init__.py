@@ -1,0 +1,18 @@
+"""libzling_tpu_torch: the zling codec in PyTorch, with hand-written CUDA
+kernels for the NVIDIA H100 (sm_90a).
+
+A port of ``libzling_tpu``'s on-device round trip (its ``backend="tpu"``):
+streams are byte-identical to the JAX package and to the native engine.
+The package imports torch and never jax; from ``libzling_tpu`` it uses only
+the host-only modules ``tables``, ``container`` and ``native.engine``.
+
+Public API:
+
+    encode(data, level=0, device="cuda") -> bytes
+    decode(data, device="cuda")          -> bytes
+    encode_file(src, dst, level=0), decode_file(src, dst)
+"""
+
+from .api import decode, decode_file, encode, encode_file  # noqa: F401
+
+__all__ = ["encode", "decode", "encode_file", "decode_file"]

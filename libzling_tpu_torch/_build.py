@@ -1,0 +1,104 @@
+"""Build and load the hand-written Hopper kernels (csrc/*.cu).
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
+shared library with a plain C interface under ``build/kernels/``, at first
+use, keyed by a hash of the sources and flags -- the same pattern as the
+JAX package's native engine (``libzling_tpu/native/engine.py::_build``):
+the build writes a temp file and renames it, so concurrent processes never
+load a half-written library.  The library is loaded with ctypes; each entry
+point takes device pointers and the CUDA stream as ``c_void_p`` and returns
+``cudaGetLastError()`` after its launch, which ``check`` turns into an
+exception.
+
+A missing ``nvcc`` or a failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_CSRC = pathlib.Path(__file__).with_name("csrc")
+_REPO = pathlib.Path(__file__).resolve().parent.parent
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# entry point -> argtypes (every pointer and the stream as c_void_p, so
+# ctypes never truncates them to 32 bits)
+_SIGNATURES = {
+    # meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base, n_chunks,
+    # out, ring, status, stream
+    "zlt_decode_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    # buf, block_off, block_len, unit_off, params, n_blocks, max_chunks,
+    # max_tokens, hash, suffix, offset, units, upos, chunk_stat,
+    # block_stat, stream
+    "zlt_tokenize": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                     _P, _P],
+    # units, unit_off, unit_cnt, n_blocks, state_in, mtfnext, units_out,
+    # state_out, stream
+    "zlt_relabel": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu (if not already built) and return the library."""
+    srcs = sorted(_CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(_CSRC.glob("*.cu*")):
+        h.update(p.name.encode() + p.read_bytes())
+    out_dir = _REPO / "build" / "kernels"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"libzlt_kernels_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
+    tmp.replace(lib)
+    return lib
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            dll = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(dll, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _LIB = dll
+    return _LIB
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_ptr(t) -> int:
+    """The current CUDA stream of tensor ``t``'s device, as an integer."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
