@@ -16,12 +16,16 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      e0 through ``libzling_tpu_torch.encode`` must equal the native
      engine's canonical stream and decode back; the same at e4 on 20 MiB
      (one full 16 MiB block and a partial one); every kernel's launch
-     count over this phase must be >= 1;
+     count over this phase must be >= 1; then each kernel again on the
+     inputs the e0 run gave it (both 16 MiB blocks, 262,144-token chunks,
+     the e0 stream) against its plain version (exact equality), timed;
   5. corrupt streams (match index 0, encpos mismatch) must raise
      ValueError through the CUDA path.
 
-The second-to-last line is a JSON object with each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is a JSON object with each kernel's launches in
+the main path, its largest error over both comparisons, and its time and
+its plain version's at the main path's e0 shapes; the last line is
+``{"ok": true, "device": {...}}``.
 The script needs one CUDA device and imports no JAX.
 """
 
@@ -154,9 +158,13 @@ def check_kernels(dev, z):
     return rows
 
 
-def full_size_ms(data: bytes, stream: bytes, dev) -> dict:
-    """One launch of each kernel at the main path's e0 shapes, in ms, and
-    the unit and token counts those launches walked."""
+def check_full_size(data: bytes, stream: bytes, dev):
+    """Phase 4b: each kernel on the inputs the main path gives it at 32 MiB
+    e0 (two 16 MiB blocks in one group, 262,144-token chunks, the initial
+    MTF state, the e0 stream) against its plain version on CPU copies of
+    the same inputs (exact equality).  One launch each, timed with CUDA
+    events; the plain version's host time beside it.  Returns the rows and
+    the unit and token counts walked."""
     from libzling_tpu.tables import (BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ,
                                      SENTINEL_LEN)
     from libzling_tpu_torch import device as zdev
@@ -165,28 +173,49 @@ def full_size_ms(data: bytes, stream: bytes, dev) -> dict:
     from libzling_tpu_torch.ops import relabel_kernel as rlk
     from libzling_tpu_torch.ops import tokenize_kernel as tkk
 
+    rows = {}
+
+    def check(name, kernel, plain):
+        got = []
+        ms = cuda_ms(lambda: got.append(kernel()), 1, False)
+        t = time.perf_counter()
+        want = plain()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        rows[name] = dict(max_abs_err=max_abs_err(zip(got[0], want)), ms=ms,
+                          plain_ms=plain_ms)
+        return want
+
     buf = torch.zeros(len(data) + SENTINEL_LEN, dtype=torch.uint8)
     buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
-    buf = buf.to(dev)
+    bufd = buf.to(dev)
     nb = -(-len(data) // BLOCK_SIZE_IN)
     offs = torch.arange(nb, dtype=torch.int64) * BLOCK_SIZE_IN
     lens = torch.clamp(len(data) - offs, max=BLOCK_SIZE_IN).to(torch.int32)
-    max_chunks = 2 * BLOCK_SIZE_IN // BLOCK_SIZE_ROLZ + 2
-    params = tkk.level_params(np.zeros((nb, max_chunks), np.int64), dev)
-    out = {}
-    out["tokenize"] = cuda_ms(lambda: out.setdefault("t", tkk.tokenize(
-        buf, offs, lens, offs, params, BLOCK_SIZE_ROLZ, len(data))), 1, False)
-    units, _, cstat, _ = out.pop("t")
-    state, nxt = mops.initial_state(dev), mops.mtf_next(dev)
+    # the schedule group_encode launches at e0: level 0 in every chunk slot
+    max_chunks = -(-BLOCK_SIZE_IN // (BLOCK_SIZE_ROLZ // 2)) + 1
+    params = tkk.level_params(np.zeros((nb, max_chunks), np.int64), "cpu")
+    args = (offs, lens, offs, params, BLOCK_SIZE_ROLZ, len(data))
+    units, _, cstat, bstat = check(
+        "tokenize", lambda: tkk.tokenize(bufd, *args),
+        lambda: tkk.tokenize_plain(buf, *args))
+    assert not bstat[:, 1].any()
+
     cnt = cstat[:, :, 0].sum(1)
-    out["relabel"] = cuda_ms(lambda: rlk.relabel(units, offs, cnt, state,
-                                                 nxt), 1, False)
-    args, size, rlens = zdev.decode_args(stream, dev)
-    out["decode_fused"] = cuda_ms(lambda: fk.fused_decode(
-        *args, out_size=size), 1, False)
-    out["units"] = int(cnt.sum())
-    out["tokens"] = int(rlens.sum())
-    return out
+    rargs = (units, offs, cnt, mops.initial_state("cpu"),
+             mops.mtf_next("cpu"))
+    rargs_d = [a.to(dev) for a in rargs]
+    check("relabel", lambda: rlk.relabel(*rargs_d),
+          lambda: rlk.relabel_plain(*rargs))
+
+    dargs, size, rlens = zdev.decode_args(stream, "cpu")
+    dargs_d = [a.to(dev) for a in dargs]
+    out, status = check(
+        "decode_fused", lambda: fk.fused_decode(*dargs_d, out_size=size),
+        lambda: fk.fused_decode_plain(*dargs, out_size=size))
+    assert out.numpy().tobytes() == data and not status[:, 2].any()
+    for r in rows.values():
+        assert r["max_abs_err"] == 0, rows
+    return rows, dict(units=int(cnt.sum()), tokens=int(rlens.sum()))
 
 
 def chunk_stream(tokens, encpos: int) -> bytes:
@@ -286,8 +315,9 @@ def main() -> int:
             decode_MBps=len(x) / dec_s / 1e6, launches=counts,
             canonical=True, round_trip=True)))
     launches = {k: f.launches for k, f in kernels.items()}
-    t0 = phase("full-size kernels e0 ms", t0,
-               json.dumps(full_size_ms(data, streams[0], dev)))
+    full, walked = check_full_size(data, streams[0], dev)
+    t0 = phase("kernel==plain at e0 full size", t0,
+               json.dumps(dict(full, **walked)))
 
     # ---- 5. corrupt streams through the CUDA path
     for name, tokens, encpos in (("matchidx_zero", [65, 66, 258, 0], 6),
@@ -308,9 +338,13 @@ def main() -> int:
         "decode_fused": ("decode_fused.cu",
                          "libzling_tpu/ops/decode_fused.py:43"),
     }
+    # times at the main path's shapes; the error over both comparisons
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=csrc + info[k][0],
-             replaces=info[k][1], launches=launches[k], **rows[k])
+             replaces=info[k][1], launches=launches[k],
+             max_abs_err=max(rows[k]["max_abs_err"],
+                             full[k]["max_abs_err"]),
+             ms=full[k]["ms"], plain_ms=full[k]["plain_ms"])
         for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

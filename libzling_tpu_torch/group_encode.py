@@ -20,7 +20,9 @@ Per group of up to ``GROUP_BLOCKS`` blocks:
 
 A group covers up to ``GROUP_BLOCKS`` = 8 blocks: at canonical geometry
 that is 128 MiB of input and ~84 MB of bucket state on the card, and the
-blocks of a group tokenize in parallel.
+blocks of a group tokenize in parallel.  Only the current group's bytes
+are on the device, so device memory is bounded by the group, not the
+input.
 """
 
 from __future__ import annotations
@@ -63,16 +65,13 @@ def encode_groups(data: bytes, level: int, device,
         return b""
     max_chunks = max(1, -(-block_size // max(1, max_tokens // 2))) + 1
     nblocks = (len(data) + block_size - 1) // block_size
-    buf = torch.zeros(len(data) + SENTINEL_LEN, dtype=torch.uint8)
-    buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
-    buf = buf.to(device)
     state = mops.initial_state(device)
     nxt = mops.mtf_next(device)
     out = bytearray()
     current_level = level
     for g0 in range(0, nblocks, GROUP_BLOCKS):
         blocks = range(g0, min(g0 + GROUP_BLOCKS, nblocks))
-        g = _Group(buf, blocks, len(data), block_size, max_tokens, device)
+        g = _Group(data, blocks, block_size, max_tokens, device)
         sched = np.full((len(blocks), max_chunks), level, np.int32)
         sched[0, 0] = entry = current_level
         while True:
@@ -88,22 +87,29 @@ def encode_groups(data: bytes, level: int, device,
 class _Group:
     """One group's device buffers and the host view of its last pass."""
 
-    def __init__(self, buf, blocks, n, block_size, max_tokens, device):
-        self.buf = buf
+    def __init__(self, data, blocks, block_size, max_tokens, device):
+        start = blocks[0] * block_size
+        end = min(blocks[-1] * block_size + block_size, len(data))
+        buf = torch.zeros(end - start + SENTINEL_LEN, dtype=torch.uint8)
+        buf[:end - start] = torch.frombuffer(bytearray(data[start:end]),
+                                             dtype=torch.uint8)
+        self.buf = buf.to(device)
         self.max_tokens = max_tokens
         self.device = device
-        offs = [b * block_size for b in blocks]
-        ilens = [min(block_size, n - o) for o in offs]
+        # block offsets within the group's slice; a block's units lie flat
+        # from its own offset, so the two coincide
+        offs = [b * block_size - start for b in blocks]
         self.block_off = torch.tensor(offs, dtype=torch.int64)
-        self.block_len = torch.tensor(ilens, dtype=torch.int32)
-        self.unit_off = self.block_off - offs[0]
-        self.n_units = sum(ilens)
+        self.block_len = torch.tensor(
+            [min(block_size, end - start - o) for o in offs],
+            dtype=torch.int32)
+        self.n_units = end - start
 
     def run(self, sched, state, nxt):
         """Tokenize + relabel + histograms + tables + pack under ``sched``."""
         dev = self.device
         units, _upos, cstat, bstat = tkk.tokenize(
-            self.buf, self.block_off, self.block_len, self.unit_off,
+            self.buf, self.block_off, self.block_len, self.block_off,
             tkk.level_params(sched, dev), self.max_tokens, self.n_units)
         cstat, bstat = cstat.cpu().numpy(), bstat.cpu().numpy()
         if bstat[:, 1].any():
@@ -112,23 +118,19 @@ class _Group:
         self.nunits = [cstat[d, :nc, 0] for d, nc in enumerate(self.nchunks)]
         self.ntoks = [cstat[d, :nc, 1] for d, nc in enumerate(self.nchunks)]
         self.encpos = [cstat[d, :nc, 2] for d, nc in enumerate(self.nchunks)]
+        cnt = cstat[:, :, 0].sum(1)
         units, self.state_out = rlk.relabel(
-            units, self.unit_off, torch.as_tensor(cstat[:, :, 0].sum(1)),
-            state, nxt)
+            units, self.block_off, torch.as_tensor(cnt), state, nxt)
 
-        # gather the group's valid units in (block, chunk) order
-        counts = np.concatenate(self.nunits).astype(np.int64)
-        C = len(counts)
-        cbase = np.concatenate([
-            self.unit_off[d].item() + np.cumsum(nu) - nu
-            for d, nu in enumerate(self.nunits)]).astype(np.int64)
-        counts_t = torch.as_tensor(counts, device=dev)
-        chunk = torch.repeat_interleave(
-            torch.arange(C, device=dev), counts_t)
-        first = torch.cumsum(counts_t, 0) - counts_t
-        pos = torch.arange(chunk.shape[0], device=dev) - first[chunk] \
-            + torch.as_tensor(cbase, device=dev)[chunk]
-        a = units[pos].to(torch.int64)
+        # the group's valid units in (block, chunk) order: each block's
+        # chunks lie back to back from its offset
+        a = torch.cat([units[o:o + n] for o, n in
+                       zip(self.block_off.tolist(), cnt.tolist())])
+        a = a.to(torch.int64)
+        counts = torch.as_tensor(np.concatenate(self.nunits), device=dev)
+        C = counts.shape[0]
+        chunk = torch.repeat_interleave(torch.arange(C, device=dev),
+                                        counts.to(torch.int64))
         sym = a & 1023
         idx = torch.where(((a >> 10) & 3) == 3, (a >> 14) & 4095, 0)
 

@@ -22,6 +22,7 @@ import libzling_tpu_torch as zt
 from libzling_tpu import spec
 from libzling_tpu.tables import SENTINEL_LEN
 from libzling_tpu_torch import device as tdevice
+from libzling_tpu_torch.group_encode import GROUP_BLOCKS
 from libzling_tpu_torch.ops import decode_fused as tfk
 from libzling_tpu_torch.ops import mtf as tmtf
 from libzling_tpu_torch.ops import relabel_kernel as trk
@@ -86,6 +87,27 @@ def test_round_trip_on_card(cuda, level):
     got = tfk.fused_decode(*(a.to(cuda) for a in args), out_size=size)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+    assert zt.decode(stream, device=cuda) == data
+
+
+@pytest.mark.parametrize("level", [0, 4])
+def test_round_trip_across_groups_on_card(cuda, level):
+    # ten 1024-byte blocks, random bytes just before the first group's edge:
+    # the next group starts from a carried level drop and MTF state
+    rng = np.random.default_rng(11)
+    words = [b"alpha", b"beta", b"gamma", b"delta", b"epsilon", b"zeta",
+             b"theta", b"kappa", b"lambda"]
+    text = b" ".join(words[i] for i in rng.integers(0, len(words), 3000))
+    cut = GROUP_BLOCKS * 1024 - 384
+    noise = bytes(rng.integers(0, 256, 512, dtype=np.uint8))
+    data = (text[:cut] + noise + text[cut:])[:10 * 1024]
+    stats = spec.EncodeStats()
+    want = spec.encode(data, level, stats=stats, block_size=1024,
+                       max_tokens=400)
+    assert stats.level_drops > 0 and stats.blocks > GROUP_BLOCKS
+    stream = zt.encode(data, level, device=cuda, block_size=1024,
+                       max_tokens=400)
+    assert stream == want
     assert zt.decode(stream, device=cuda) == data
 
 

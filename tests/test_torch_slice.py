@@ -19,6 +19,7 @@ import libzling_tpu_torch as zt
 from libzling_tpu import device as jdevice
 from libzling_tpu import spec
 from libzling_tpu.tables import LEVEL_PARAMS
+from libzling_tpu_torch.group_encode import GROUP_BLOCKS
 
 
 def _text_and_random(seed: int = 7) -> bytes:
@@ -39,6 +40,32 @@ def test_encode_matches_spec_small_geometry(level):
     want = spec.encode(data, level, stats=stats, block_size=1024,
                        max_tokens=400)
     assert stats.level_drops > 0 and stats.blocks > 4
+    got = zt.encode(data, level, device="cpu", block_size=1024,
+                    max_tokens=400)
+    assert got == want
+    assert zt.decode(got, device="cpu") == data
+
+
+def _across_group_edge(block_size: int, seed: int = 11) -> bytes:
+    # ten blocks of text with random bytes just before the edge of the first
+    # group: the last chunk of that group drops to level 0, so the next group
+    # starts from a carried level and a carried MTF state
+    rng = np.random.default_rng(seed)
+    words = [b"alpha", b"beta", b"gamma", b"delta", b"epsilon", b"zeta",
+             b"theta", b"kappa", b"lambda"]
+    text = b" ".join(words[i] for i in rng.integers(0, len(words), 3000))
+    cut = GROUP_BLOCKS * block_size - 3 * block_size // 8
+    noise = bytes(rng.integers(0, 256, block_size // 2, dtype=np.uint8))
+    return (text[:cut] + noise + text[cut:])[:10 * block_size]
+
+
+@pytest.mark.parametrize("level", [0, 4])
+def test_encode_matches_spec_across_groups(level):
+    data = _across_group_edge(1024)
+    stats = spec.EncodeStats()
+    want = spec.encode(data, level, stats=stats, block_size=1024,
+                       max_tokens=400)
+    assert stats.level_drops > 0 and stats.blocks > GROUP_BLOCKS
     got = zt.encode(data, level, device="cpu", block_size=1024,
                     max_tokens=400)
     assert got == want
