@@ -5,22 +5,29 @@
 Phases (each prints one line with its seconds; any failure exits non-zero):
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-  2. the build: every kernel of ``libzling_tpu_torch/csrc`` with nvcc;
-  3. kernel == plain: K4 tokenize, K5 relabel and K3 fused decode on CUDA
-     tensors against their plain PyTorch versions on the same inputs
-     (exact equality), at small geometry -- several blocks and chunks,
-     levels 0, 4 and 6, text mixed with random bytes, and K5 started from
-     a non-initial MTF state -- with each one's time beside the plain one's;
+  2. the build: every kernel of ``libzling_tpu_torch/csrc``, one nvcc per
+     source, all at once;
+  3. kernel == plain: K4 tokenize, K5 relabel, K3 fused decode, K1 entropy
+     decode and K2 resolve on CUDA tensors against their plain PyTorch
+     versions on the same inputs (exact equality), at small geometry --
+     several blocks and chunks, levels 0, 4 and 6, text mixed with random
+     bytes, K5 and K2 each started a second time from the first call's
+     exit MTF state, and K1 + K2 on a crafted chunk whose first head byte
+     is a match symbol -- with each one's time beside the plain one's;
   4. the main path at full size: a 32 MiB corpus (1 MiB of random bytes
      spliced into the middle, so the adaptive level drop fires) encoded at
      e0 through ``libzling_tpu_torch.encode`` must equal the native
-     engine's canonical stream and decode back; the same at e4 on 20 MiB
-     (one full 16 MiB block and a partial one); every kernel's launch
-     count over this phase must be >= 1; then each kernel again on the
-     inputs the e0 run gave it (both 16 MiB blocks, 262,144-token chunks,
-     the e0 stream) against its plain version (exact equality), timed;
+     engine's canonical stream, and decode back through the fused path
+     (K3), the split path (``decode(fused=False)``: K1 -> K2) and the
+     group path (``decode_groups``, one block a group, the MTF table
+     carried across the group edge); the same at e4 on 20 MiB (one full
+     16 MiB block and a partial one).  Every count is set to 0 just before
+     each path and read just after it; each kernel of the path must have
+     launched.  Then each kernel again on the inputs the e0 run gave it
+     (both 16 MiB blocks, 262,144-token chunks, the e0 stream) against its
+     plain version (exact equality), timed;
   5. corrupt streams (match index 0, encpos mismatch) must raise
-     ValueError through the CUDA path.
+     ValueError through the fused, split and group paths on the card.
 
 The second-to-last line is a JSON object with each kernel's launches in
 the main path, its largest error over both comparisons, and its time and
@@ -75,6 +82,47 @@ def max_abs_err(pairs) -> int:
     return err
 
 
+def on(args, dev):
+    """The tensors of an argument tuple moved to ``dev``."""
+    return [a.to(dev) if torch.is_tensor(a) else a for a in args]
+
+
+def check_split(dev, s, parts, row):
+    """K1 then K2 over each chunk range of ``parts`` (CUDA tensors against
+    the plain versions, exact equality), K2 chained: each call starts from
+    the previous call's exit MTF table.  Returns the plain output bytes."""
+    from libzling_tpu_torch.ops import entropy_kernel as ek
+    from libzling_tpu_torch.ops import mtf as mops
+    from libzling_tpu_torch.ops import resolve_kernel as rk
+
+    table = mops.initial_table("cpu")
+    out = b""
+    for k, (c0, c1) in enumerate(parts):
+        # every call after the first starts from a non-initial table
+        assert k == 0 or not torch.equal(table, mops.initial_table("cpu"))
+        k1, k2 = s.stage_split(c0, c1, "cpu")
+        k1d, k2d = on(k1, dev), on(k2, dev)
+        got = ek.decode_chunks(*k1d)
+        t = time.perf_counter()
+        want = ek.decode_chunks_plain(*k1)
+        plain = (time.perf_counter() - t) * 1e3
+        assert not want[1][:, 2].any()
+        row("entropy_decode", max_abs_err(zip(got, want)),
+            cuda_ms(lambda: ek.decode_chunks(*k1d)), plain)
+
+        tokens, tokd, tabd = want[0], want[0].to(dev), table.to(dev)
+        got = rk.resolve_stream(tokd, *k2d, tabd)
+        t = time.perf_counter()
+        want = rk.resolve_stream_plain(tokens, *k2, table)
+        plain = (time.perf_counter() - t) * 1e3
+        assert not want[1][:, 2].any()
+        row("resolve", max_abs_err(zip(got, want)),
+            cuda_ms(lambda: rk.resolve_stream(tokd, *k2d, tabd)), plain)
+        table = want[2]
+        out += want[0].numpy().tobytes()
+    return out
+
+
 def small_data(seed: int = 7) -> bytes:
     rng = np.random.default_rng(seed)
     words = [b"alpha", b"beta", b"gamma", b"delta", b"epsilon", b"zeta",
@@ -88,6 +136,7 @@ def check_kernels(dev, z):
     """Phase 3: each kernel against its plain version; returns their rows."""
     from libzling_tpu.tables import SENTINEL_LEN
     from libzling_tpu_torch import device as zdev
+    from libzling_tpu_torch import group_decode as gd
     from libzling_tpu_torch.ops import decode_fused as fk
     from libzling_tpu_torch.ops import mtf as mops
     from libzling_tpu_torch.ops import relabel_kernel as rlk
@@ -153,6 +202,18 @@ def check_kernels(dev, z):
         row("decode_fused", max_abs_err(zip(g, w)),
             cuda_ms(lambda: fk.fused_decode(*dargs_d, out_size=len(data))),
             plain)
+
+        # K1 + K2 on the same stream, its blocks in two calls
+        st = gd.parse(stream)
+        B = len(st.block_base) - 1
+        parts = (st.chunks_of(0, B // 2), st.chunks_of(B // 2, B))
+        assert B >= 2 and parts[0][1] > parts[0][0] + 1
+        assert check_split(dev, st, parts, row) == data
+
+    # a match symbol as the first head byte: the split path reads its index
+    # as the second head byte (the JAX split decoder and spec.decode agree)
+    st = gd.parse(chunk_stream([258, 5, 65, 66], 4))
+    assert check_split(dev, st, [(0, 1)], row) == b"\x02\x056L"
     for r in rows.values():
         assert r["max_abs_err"] == 0, rows
     return rows
@@ -161,15 +222,19 @@ def check_kernels(dev, z):
 def check_full_size(data: bytes, stream: bytes, dev):
     """Phase 4b: each kernel on the inputs the main path gives it at 32 MiB
     e0 (two 16 MiB blocks in one group, 262,144-token chunks, the initial
-    MTF state, the e0 stream) against its plain version on CPU copies of
-    the same inputs (exact equality).  One launch each, timed with CUDA
-    events; the plain version's host time beside it.  Returns the rows and
-    the unit and token counts walked."""
+    MTF state, the e0 stream; K1 and K2 as ``decode(fused=False)`` calls
+    them, over every chunk of the stream) against its plain version on CPU
+    copies of the same inputs (exact equality).  One launch each, timed
+    with CUDA events; the plain version's host time beside it.  Returns the
+    rows and the unit and token counts walked."""
     from libzling_tpu.tables import (BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ,
                                      SENTINEL_LEN)
     from libzling_tpu_torch import device as zdev
+    from libzling_tpu_torch import group_decode as gd
     from libzling_tpu_torch.ops import decode_fused as fk
+    from libzling_tpu_torch.ops import entropy_kernel as ek
     from libzling_tpu_torch.ops import mtf as mops
+    from libzling_tpu_torch.ops import resolve_kernel as rk
     from libzling_tpu_torch.ops import relabel_kernel as rlk
     from libzling_tpu_torch.ops import tokenize_kernel as tkk
 
@@ -213,9 +278,24 @@ def check_full_size(data: bytes, stream: bytes, dev):
         "decode_fused", lambda: fk.fused_decode(*dargs_d, out_size=size),
         lambda: fk.fused_decode_plain(*dargs, out_size=size))
     assert out.numpy().tobytes() == data and not status[:, 2].any()
+
+    st = gd.parse(stream)
+    k1, k2 = st.stage_split(0, len(st.rlens), "cpu")
+    k1d, k2d = on(k1, dev), on(k2, dev)
+    tokens, estatus = check("entropy_decode", lambda: ek.decode_chunks(*k1d),
+                            lambda: ek.decode_chunks_plain(*k1))
+    assert not estatus[:, 2].any()
+    assert estatus[:, 0].tolist() == st.rlens.tolist()
+    table = mops.initial_table("cpu")
+    tokd, tabd = tokens.to(dev), table.to(dev)
+    out, status, _ = check(
+        "resolve", lambda: rk.resolve_stream(tokd, *k2d, tabd),
+        lambda: rk.resolve_stream_plain(tokens, *k2, table))
+    assert out.numpy().tobytes() == data and not status[:, 2].any()
     for r in rows.values():
         assert r["max_abs_err"] == 0, rows
-    return rows, dict(units=int(cnt.sum()), tokens=int(rlens.sum()))
+    return rows, dict(units=int(cnt.sum()), tokens=int(rlens.sum()),
+                      chunks=len(st.rlens))
 
 
 def chunk_stream(tokens, encpos: int) -> bytes:
@@ -265,7 +345,9 @@ def main() -> int:
     import libzling_tpu_torch as z
     from libzling_tpu_torch import _build
     from libzling_tpu_torch.ops import decode_fused as fk
+    from libzling_tpu_torch.ops import entropy_kernel as ek
     from libzling_tpu_torch.ops import relabel_kernel as rlk
+    from libzling_tpu_torch.ops import resolve_kernel as rk
     from libzling_tpu_torch.ops import tokenize_kernel as tkk
 
     _build.lib()
@@ -288,46 +370,73 @@ def main() -> int:
     t0 = phase("corpus", t0, f"{len(data)} bytes")
 
     kernels = {"tokenize": tkk.tokenize, "relabel": rlk.relabel,
-               "decode_fused": fk.fused_decode}
-    for fn in kernels.values():
-        fn.launches = 0
+               "decode_fused": fk.fused_decode,
+               "entropy_decode": ek.decode_chunks,
+               "resolve": rk.resolve_stream}
+    launches = dict.fromkeys(kernels, 0)
+
+    def drive(fn, want):
+        """Run one path with every count at 0; each kernel of ``want`` must
+        launch.  Returns (its result, seconds, the counts of ``want``)."""
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        counts = {k: kernels[k].launches for k in want}
+        assert all(counts.values()), counts
+        for k, n in counts.items():
+            launches[k] += n
+        return out, sec, counts
+
+    split = ("entropy_decode", "resolve")
     streams = {}
     for level, size in ((0, 32 * MiB), (4, 20 * MiB)):
         x = data[:size]
-        before = {k: f.launches for k, f in kernels.items()}
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        stream = z.encode(x, level)
-        enc_s = time.perf_counter() - t
+        stream, enc_s, enc_n = drive(lambda: z.encode(x, level),
+                                     ("tokenize", "relabel"))
         assert stream == engine.encode(x, level), f"e{level} stream differs"
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        back = z.decode(stream)
-        dec_s = time.perf_counter() - t
-        assert back == x, f"e{level} round trip differs"
         streams[level] = stream
-        counts = {k: f.launches - before[k] for k, f in kernels.items()}
-        assert all(counts.values()), counts
+        paths = {
+            "fused": (lambda: z.decode(stream), ("decode_fused",)),
+            "split": (lambda: z.decode(stream, fused=False), split),
+            "groups": (lambda: z.decode_groups(stream, group_blocks=1),
+                       split),
+        }
+        times = dict(encode=dict(s=enc_s, MBps=len(x) / enc_s / 1e6,
+                                 launches=enc_n))
+        for name, (fn, want) in paths.items():
+            back, sec, n = drive(fn, want)
+            assert back == x, f"e{level} {name} round trip differs"
+            times[name] = dict(s=sec, MBps=len(x) / sec / 1e6, launches=n)
+        probe = {}
+        back, sec, _ = drive(lambda: z.decode_groups(
+            stream, group_blocks=1, stage_probe=probe), split)
+        assert back == x
+        times["groups_probe"] = dict(s=sec, **probe)
         t0 = phase(f"main e{level}", t0, json.dumps(dict(
-            bytes=len(x), stream=len(stream),
-            ratio=len(stream) / len(x), encode_s=enc_s,
-            encode_MBps=len(x) / enc_s / 1e6, decode_s=dec_s,
-            decode_MBps=len(x) / dec_s / 1e6, launches=counts,
-            canonical=True, round_trip=True)))
-    launches = {k: f.launches for k, f in kernels.items()}
+            bytes=len(x), stream=len(stream), ratio=len(stream) / len(x),
+            blocks=-(-len(x) // (16 * MiB)), canonical=True, round_trip=True,
+            **times)))
     full, walked = check_full_size(data, streams[0], dev)
     t0 = phase("kernel==plain at e0 full size", t0,
                json.dumps(dict(full, **walked)))
 
-    # ---- 5. corrupt streams through the CUDA path
+    # ---- 5. corrupt streams through the CUDA paths
+    decoders = (z.decode, lambda d: z.decode(d, fused=False),
+                lambda d: z.decode_groups(d, group_blocks=1))
     for name, tokens, encpos in (("matchidx_zero", [65, 66, 258, 0], 6),
                                  ("encpos_mismatch", [65, 66, 67], 9)):
-        try:
-            z.decode(chunk_stream(tokens, encpos))
-        except ValueError:
-            continue
-        raise AssertionError(f"corrupt stream {name} was accepted")
-    t0 = phase("corrupt", t0, "rejected: matchidx_zero, encpos_mismatch")
+        for path, dec in zip(("fused", "split", "groups"), decoders):
+            try:
+                dec(chunk_stream(tokens, encpos))
+            except ValueError:
+                continue
+            raise AssertionError(f"corrupt stream {name} accepted ({path})")
+    t0 = phase("corrupt", t0, "rejected by the fused, split and group "
+               "paths: matchidx_zero, encpos_mismatch")
 
     assert "jax" not in sys.modules
     csrc = "libzling_tpu_torch/csrc/"
@@ -337,6 +446,9 @@ def main() -> int:
         "relabel": ("relabel.cu", "libzling_tpu/ops/relabel_kernel.py:69"),
         "decode_fused": ("decode_fused.cu",
                          "libzling_tpu/ops/decode_fused.py:43"),
+        "entropy_decode": ("entropy_decode.cu",
+                           "libzling_tpu/ops/entropy_kernel.py:190"),
+        "resolve": ("resolve.cu", "libzling_tpu/ops/resolve_kernel.py:63"),
     }
     # times at the main path's shapes; the error over both comparisons
     print(json.dumps({"kernels": [

@@ -9,10 +9,12 @@ the host-only modules ``tables``, ``container`` and ``native.engine``.
 Public API:
 
     encode(data, level=0, device="cuda") -> bytes
-    decode(data, device="cuda")          -> bytes
+    decode(data, device="cuda", fused=True) -> bytes
+    decode_groups(data, device="cuda", group_blocks=1) -> bytes
     encode_file(src, dst, level=0), decode_file(src, dst)
 """
 
 from .api import decode, decode_file, encode, encode_file  # noqa: F401
+from .group_decode import decode_groups  # noqa: F401
 
-__all__ = ["encode", "decode", "encode_file", "decode_file"]
+__all__ = ["encode", "decode", "decode_groups", "encode_file", "decode_file"]

@@ -1,12 +1,13 @@
 """Build and load the hand-written Hopper kernels (csrc/*.cu).
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into ONE
-shared library with a plain C interface under ``build/kernels/``, at first
-use, keyed by a hash of the sources and flags -- the same pattern as the
-JAX package's native engine (``libzling_tpu/native/engine.py::_build``):
-the build writes a temp file and renames it, so concurrent processes never
-load a half-written library.  The library is loaded with ctypes; each entry
-point takes device pointers and the CUDA stream as ``c_void_p`` and returns
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
+all of them at once, and the objects are linked into ONE shared library
+with a plain C interface under ``build/kernels/``, at first use, keyed by a
+hash of the sources and flags -- the same pattern as the JAX package's
+native engine (``libzling_tpu/native/engine.py::_build``): the build writes
+a temp file and renames it, so concurrent processes never load a
+half-written library.  The library is loaded with ctypes; each entry point
+takes device pointers and the CUDA stream as ``c_void_p`` and returns
 ``cudaGetLastError()`` after its launch, which ``check`` turns into an
 exception.
 
@@ -26,7 +27,7 @@ import threading
 _CSRC = pathlib.Path(__file__).with_name("csrc")
 _REPO = pathlib.Path(__file__).resolve().parent.parent
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -39,6 +40,12 @@ _SIGNATURES = {
     # meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base, n_chunks,
     # out, ring, status, stream
     "zlt_decode_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    # meta, order1, lut1, lut2, words, tok_off, n_chunks, tokens, status,
+    # stream
+    "zlt_entropy_decode": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    # tokens, tok_off, rlens, encpos, new_block, out_base, mtf0, mtfnext,
+    # n_chunks, out, ring, status, mtf_out, stream
+    "zlt_resolve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     # buf, block_off, block_len, unit_off, params, n_blocks, max_chunks,
     # max_tokens, hash, suffix, offset, units, upos, chunk_stat,
     # block_stat, stream
@@ -68,12 +75,29 @@ def build() -> pathlib.Path:
     lib = out_dir / f"libzlt_kernels_{h.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    tmp.replace(lib)
+    nvcc = _nvcc()
+    tmp = out_dir / f"tmp{os.getpid()}"
+    tmp.mkdir(exist_ok=True)
+    try:
+        objs = [tmp / (p.stem + ".o") for p in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]   # waits for every one
+        for p, src, log in zip(procs, srcs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({p.returncode}):\n{log}")
+        so = tmp / lib.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(so), *map(str, objs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        so.replace(lib)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 

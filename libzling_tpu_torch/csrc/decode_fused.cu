@@ -8,53 +8,17 @@
 // tables (12-bit alphabet-1 LUT, canonical tiers for 13..15-bit codes, the
 // 8-bit alphabet-2 LUT) and the word-MRU (reset per chunk).  The ring of
 // token-start positions ([256][4096] i32) is in global memory, cleared by
-// the whole CTA at each new block.  Thread 0 walks each chunk.
-#include "common.cuh"
+// the whole CTA at each new block.  Thread 0 walks each chunk: the reader
+// is K1's (huffman.cuh), the resolve steps are K2's (rolz.cuh).
+#include "huffman.cuh"
+#include "rolz.cuh"
 
 namespace {
 
 using namespace zlt;
 
-constexpr int kLut1 = 4096;      // 12-bit window LUT: sym | len << 16
-constexpr int kOrder = 1024;     // symbols by (length, id), per chunk
-constexpr int kLut2 = 256;       // len2 | matchidx bits << 8 | base << 16
-constexpr int kTier = 48;        // start[16], count[16], base[16]
 constexpr int kMru = 512;        // [ctx][2] words, newest first
 constexpr int kSmem = 65536 + 4 * (kLut1 + kOrder + kLut2 + kTier + kMru + 256);
-
-// Codes of 13..15 bits: the unique tier whose MSB-first range holds the
-// reversed window's top bits.
-__device__ __forceinline__ int tier_lookup(uint32_t lo, const int* tier,
-                                           const int* order) {
-  const int v15 = static_cast<int>(__brev(lo & 0x7FFFu) >> 17);
-  for (int ln = 13; ln <= 15; ++ln) {
-    const int top = v15 >> (15 - ln);
-    const int s = tier[ln], cnt = tier[16 + ln];
-    if (top >= s && top < s + cnt) {
-      const int pos = min(max(tier[32 + ln] + top - s, 0), kOrder - 1);
-      return order[pos] | (ln << 16);
-    }
-  }
-  return -1;
-}
-
-// Forward copy with the format's overlap semantics (out[opos+k] =
-// out[src+k], byte by byte).  Sources at least 8 bytes back are moved in
-// groups of 8 independent loads.
-__device__ __forceinline__ void copy_match(uint8_t* o, int opos, int src,
-                                           int mlen) {
-  int k = 0;
-  if (opos - src >= 8) {
-    for (; k + 8 <= mlen; k += 8) {
-      uint8_t v[8];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = o[src + k + q];
-#pragma unroll
-      for (int q = 0; q < 8; ++q) o[opos + k + q] = v[q];
-    }
-  }
-  for (; k < mlen; ++k) o[opos + k] = o[src + k];
-}
 
 __global__ void __launch_bounds__(kThreads)
 decode_fused_kernel(const int* __restrict__ meta,
@@ -97,11 +61,8 @@ decode_fused_kernel(const int* __restrict__ meta,
     }
     const int* m = meta + static_cast<size_t>(c) * 1024;
     const int new_block = m[4];
-    for (int i = tid; i < kLut1; i += kThreads) s_lut1[i] = lut1[c * kLut1 + i];
-    for (int i = tid; i < kOrder; i += kThreads) s_order[i] = order1[c * kOrder + i];
-    for (int i = tid; i < kLut2; i += kThreads) s_lut2[i] = lut2[c * 1024 + i];
-    for (int i = tid; i < kTier; i += kThreads)
-      s_tier[i] = m[128 * (1 + i / 16) + i % 16];
+    load_chunk_tables(c, meta, order1, lut1, lut2, s_lut1, s_order, s_lut2,
+                      s_tier);
     for (int i = tid; i < kMru; i += kThreads) s_mru[i] = 0;
     if (new_block) {
       for (int i = tid; i < 256; i += kThreads) s_head[i] = 0;
@@ -112,25 +73,20 @@ decode_fused_kernel(const int* __restrict__ meta,
     __syncthreads();
     if (tid != 0) continue;
 
-    const int n_words = m[0], rlen = m[1], encpos = m[3];
+    const int n_words = m[0], rlen = m[1];
     const uint32_t* wp = words + m[2];
+    const int opos0 = new_block ? 0 : s_opos;
     uint8_t* o = out + out_base[c];
-    int opos = new_block ? 0 : s_opos;
-    const int opos0 = opos;
-    int l1 = opos >= 1 ? o[opos - 1] : 0;
-    int l2 = opos >= 2 ? o[opos - 2] : 0;
+    Resolver r{o, ring, s_head, s_mru, s_mtf, s_nxt, opos0,
+               opos0 >= 1 ? o[opos0 - 1] : 0, opos0 >= 2 ? o[opos0 - 2] : 0,
+               m[3]};
     uint64_t acc = wp[0] | (static_cast<uint64_t>(wp[1]) << 32);
     int nbits = 64, wpos = 2, emitted = 0;
     bool bad = false;
     while (emitted < rlen) {
       // alphabet-1 symbol: refill to >= 32 bits, LUT, tiers, consume
-      if (nbits < 32) {
-        acc |= static_cast<uint64_t>(wp[wpos]) << nbits;
-        ++wpos;
-        nbits += 32;
-      }
-      int e = s_lut1[acc & 0xFFF];
-      if (e < 0) e = tier_lookup(static_cast<uint32_t>(acc), s_tier, s_order);
+      refill(acc, nbits, wpos, wp);
+      const int e = peek_symbol(acc, s_lut1, s_tier, s_order);
       if (e < 0) { bad = true; break; }
       const int t = e & 0xFFFF;
       const int hl = max((e >> 16) & 31, 1);
@@ -138,17 +94,11 @@ decode_fused_kernel(const int* __restrict__ meta,
       nbits -= hl;
       if (wpos > n_words) { bad = true; break; }
 
-      if (opos <= 1) {  // the two raw head bytes of a block
-        if (opos + 1 > encpos) { bad = true; break; }
-        const int b = t & 255;
-        o[opos++] = static_cast<uint8_t>(b);
+      if (r.opos <= 1) {  // the two raw head bytes of a block
+        if (!r.head_byte(t)) { bad = true; break; }
         ++emitted;
-        l2 = l1;
-        l1 = b;
         continue;
       }
-      const int ctx = l1;
-      int* rg = ring + ctx * kRing;
       if (t >= 258) {  // match: alphabet-2 code + extra bits, ring source
         if (emitted + 1 >= rlen) { bad = true; break; }
         const int e2 = s_lut2[acc & 0xFF];
@@ -159,59 +109,14 @@ decode_fused_kernel(const int* __restrict__ meta,
         acc >>= hl2 + blen;
         nbits -= hl2 + blen;
         emitted += 2;
-        const int h = (s_head[ctx] + 1) & (kRing - 1);
-        s_head[ctx] = h;
-        const int src = rg[(h - midx) & (kRing - 1)];
-        rg[h] = opos;
-        const int mlen = t - 258 + kMatchMin;
-        if (midx == 0 || src == 0 || src >= opos || opos + mlen > encpos) {
-          bad = true;
-          break;
-        }
-        copy_match(o, opos, src, mlen);
-        opos += mlen;
-        const int cu = o[opos - 3];
-        l2 = o[opos - 2];
-        l1 = o[opos - 1];
-        const int wu = (l2 << 8) | l1;
-        if (s_mru[cu * 2] != wu) {
-          s_mru[cu * 2 + 1] = s_mru[cu * 2];
-          s_mru[cu * 2] = wu;
-        }
+        if (!r.match(t, midx)) { bad = true; break; }
         continue;
       }
-      const int n = t < 256 ? 1 : 2;
-      if (opos + n > encpos) { bad = true; break; }
-      const int h = (s_head[ctx] + 1) & (kRing - 1);
-      s_head[ctx] = h;
-      rg[h] = opos;
+      if (!r.simple(t)) { bad = true; break; }
       ++emitted;
-      if (t < 256) {  // literal: sticky-MTF rank -> byte, swap with MTF_NEXT
-        uint8_t* row = s_mtf + ctx * 256;
-        const int lit = row[t];
-        const int j = s_nxt[t];
-        row[t] = row[j];
-        row[j] = static_cast<uint8_t>(lit);
-        o[opos++] = static_cast<uint8_t>(lit);
-        s_mru[l2 * 2 + 1] = s_mru[l2 * 2];
-        s_mru[l2 * 2] = (ctx << 8) | lit;
-        l2 = ctx;
-        l1 = lit;
-      } else {  // word-MRU hit (256: newest, 257: second)
-        const int wv = s_mru[ctx * 2 + (t & 1)];
-        const int b0 = (wv >> 8) & 255, b1 = wv & 255;
-        o[opos] = static_cast<uint8_t>(b0);
-        o[opos + 1] = static_cast<uint8_t>(b1);
-        if (t == 257) {
-          s_mru[ctx * 2 + 1] = s_mru[ctx * 2];
-          s_mru[ctx * 2] = wv;
-        }
-        opos += 2;
-        l2 = b0;
-        l1 = b1;
-      }
     }
-    bad = bad || (wpos * 32 - nbits > n_words * 32) || opos != encpos;
+    const int opos = r.opos;
+    bad = bad || (wpos * 32 - nbits > n_words * 32) || opos != r.encpos;
     int* st = status + 4 * c;
     st[0] = opos;
     st[1] = emitted;

@@ -1,0 +1,77 @@
+// The LSB-first canonical Huffman reader shared by K1 (entropy_decode.cu)
+// and K3 (decode_fused.cu), so the two readers cannot drift apart.
+//
+// A chunk's tables come from ops/entropy_kernel.py::build_chunk_tables:
+// the 12-bit window LUT of alphabet 1 (sym | len << 16, -1 for a miss or a
+// longer code), the symbols in canonical order, the alphabet-2 LUT
+// (len2 | matchidx bits << 8 | matchidx base << 16) and the canonical tiers
+// (start, count, base for lengths 0..15) from meta rows 1-3.  The bit
+// reader is a 64-bit accumulator of `nbits` valid bits from its LSB; one
+// unit consumes at most 15 + 8 + 8 = 31 bits, so a top-up to >= 32 bits
+// once per unit keeps every peek inside it.
+#pragma once
+
+#include "common.cuh"
+
+namespace zlt {
+
+constexpr int kLut1 = 4096;      // 12-bit window LUT: sym | len << 16
+constexpr int kOrder = 1024;     // symbols by (length, id), per chunk
+constexpr int kLut2 = 256;       // len2 | matchidx bits << 8 | base << 16
+constexpr int kTier = 48;        // start[16], count[16], base[16]
+
+// Load chunk c's tables into shared memory: every thread of the CTA takes
+// part; the caller synchronises before reading them.
+__device__ __forceinline__ void load_chunk_tables(
+    int c, const int* __restrict__ meta, const int* __restrict__ order1,
+    const int* __restrict__ lut1, const int* __restrict__ lut2, int* s_lut1,
+    int* s_order, int* s_lut2, int* s_tier) {
+  const int* m = meta + static_cast<size_t>(c) * 1024;
+  for (int i = threadIdx.x; i < kLut1; i += blockDim.x)
+    s_lut1[i] = lut1[static_cast<size_t>(c) * kLut1 + i];
+  for (int i = threadIdx.x; i < kOrder; i += blockDim.x)
+    s_order[i] = order1[static_cast<size_t>(c) * kOrder + i];
+  for (int i = threadIdx.x; i < kLut2; i += blockDim.x)
+    s_lut2[i] = lut2[static_cast<size_t>(c) * 1024 + i];
+  for (int i = threadIdx.x; i < kTier; i += blockDim.x)
+    s_tier[i] = m[128 * (1 + i / 16) + i % 16];
+}
+
+// Top the accumulator up to >= 32 bits: at most one word per unit, read
+// where the JAX reader reads it, so `wpos > n_words` rejects the same
+// streams.
+__device__ __forceinline__ void refill(uint64_t& acc, int& nbits, int& wpos,
+                                       const uint32_t* wp) {
+  if (nbits < 32) {
+    acc |= static_cast<uint64_t>(wp[wpos]) << nbits;
+    ++wpos;
+    nbits += 32;
+  }
+}
+
+// Codes of 13..15 bits: the unique tier whose MSB-first range holds the
+// reversed window's top bits.
+__device__ __forceinline__ int tier_lookup(uint32_t lo, const int* tier,
+                                           const int* order) {
+  const int v15 = static_cast<int>(__brev(lo & 0x7FFFu) >> 17);
+  for (int ln = 13; ln <= 15; ++ln) {
+    const int top = v15 >> (15 - ln);
+    const int s = tier[ln], cnt = tier[16 + ln];
+    if (top >= s && top < s + cnt) {
+      const int pos = min(max(tier[32 + ln] + top - s, 0), kOrder - 1);
+      return order[pos] | (ln << 16);
+    }
+  }
+  return -1;
+}
+
+// The alphabet-1 entry at the accumulator's window (sym | len << 16), or
+// -1 when no code matches.  Does not consume.
+__device__ __forceinline__ int peek_symbol(uint64_t acc, const int* s_lut1,
+                                           const int* s_tier,
+                                           const int* s_order) {
+  const int e = s_lut1[acc & 0xFFF];
+  return e >= 0 ? e : tier_lookup(static_cast<uint32_t>(acc), s_tier, s_order);
+}
+
+}  // namespace zlt

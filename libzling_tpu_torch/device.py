@@ -6,18 +6,19 @@ Counterpart of ``libzling_tpu/device.py`` (``encode``, ``decode``).
       Huffman stages, host length tables and framing -- at the canonical
       16 MiB / 262,144-token geometry by default;
   decode: host parse (``container.parse``, ``unpack_length_tables``), then
-      the fused kernel K3 writes every block's bytes at its offset in one
-      u8 tensor; the per-chunk status turns into ``ValueError`` on a
-      corrupt stream.
+      either the fused kernel K3 (the default), which writes every block's
+      bytes at its offset in one u8 tensor, or (``fused=False``) the split
+      pair: K1 decodes every chunk to tokens, one CTA per chunk, and K2
+      resolves them (``group_decode.py`` with one group); the per-chunk
+      statuses turn into ``ValueError`` on a corrupt stream.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from libzling_tpu import container
 from libzling_tpu.tables import BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ
+from . import group_decode
 from .group_encode import encode_groups
 from .ops import decode_fused as fk
 
@@ -48,23 +49,24 @@ def decode_args(data: bytes, device):
     the decoded size, the per-chunk token counts), or None for a stream
     without chunks.
     """
-    chunks, block_sizes = container.parse(data)
-    if not chunks:
+    s = group_decode.parse(data)
+    if s is None:
         return None
-    len1, len2, bodies, rlens = container.unpack_length_tables(chunks)
-    block_base = np.cumsum([0] + block_sizes[:-1])
-    block_id = np.asarray([ch.block_id for ch in chunks])
-    new_block = np.r_[1, block_id[1:] != block_id[:-1]].astype(np.int32)
-    args = fk.prepare_fused(len1, len2, bodies, rlens,
-                            [ch.encpos for ch in chunks], new_block,
-                            block_base[block_id], device)
-    return args, int(sum(block_sizes)), rlens
+    args = fk.prepare_fused(s.len1, s.len2, s.bodies, s.rlens, s.encpos,
+                            s.new_block, s.block_base[s.block_id], device)
+    return args, int(s.block_base[-1]), s.rlens
 
 
-def decode(data: bytes, device="cuda") -> bytes:
-    """Decode a zling stream on ``device``; raises ValueError if corrupt."""
+def decode(data: bytes, device="cuda", fused: bool = True) -> bytes:
+    """Decode a zling stream on ``device``; raises ValueError if corrupt.
+
+    ``fused=False`` runs the split pair K1 -> K2 instead of K3; the two
+    differ only on corrupt input, as the JAX package's two layouts do.
+    """
     dev = resolve_device(device)
     data = bytes(data)
+    if not fused:
+        return group_decode.decode_groups(data, dev, group_blocks=None)
     staged = decode_args(data, dev) if data else None
     if staged is None:
         return b""

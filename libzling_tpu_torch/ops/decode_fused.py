@@ -5,7 +5,8 @@ Counterpart of ``libzling_tpu/ops/decode_fused.py``: the kernel
 pass over every chunk of a stream: the LSB-first canonical Huffman reader
 feeds the ROLZ resolve state machine directly, with no token array.
 
-Source note (``csrc/decode_fused.cu``):
+Source note (``csrc/decode_fused.cu``, with K1's reader
+``csrc/huffman.cuh`` and K2's resolve steps ``csrc/rolz.cuh``):
   * replaces ``libzling_tpu/ops/decode_fused.py::_fused_kernel``;
   * bound on this card: one dependent chain per token -- the resolve is
     serial over the whole stream (each literal's context is the byte just
@@ -34,11 +35,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzling_tpu.tables import MATCH_MIN_LEN
 from . import mtf as mops
-from .entropy_kernel import build_chunk_tables, pack_payload_words
-
-RING = 4096
+from .entropy_kernel import M32, host_to, stage_chunks, tier_lookup
+from .resolve_kernel import RING, Resolver
 
 
 def prepare_fused(len1, len2, payloads, rlens, encpos, new_block, out_base,
@@ -50,18 +49,13 @@ def prepare_fused(len1, len2, payloads, rlens, encpos, new_block, out_base,
     of the chunk's block in the output.  Returns the argument tuple of
     ``fused_decode`` (without ``out_size``).
     """
-    words, word_base, n_words = pack_payload_words(payloads)
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
-
-    meta, order1, lut1, lut2 = build_chunk_tables(
-        t(len1), t(len2), t(n_words), t(word_base), t(rlens))
-    meta[:, 0, 3] = t(encpos).to(torch.int32)
-    meta[:, 0, 4] = t(new_block).to(torch.int32)
+    meta, order1, lut1, lut2, words, _, _ = stage_chunks(
+        len1, len2, payloads, rlens, device)
+    meta[:, 0, 3] = host_to(np.asarray(encpos, np.int32), device)
+    meta[:, 0, 4] = host_to(np.asarray(new_block, np.int32), device)
     return (meta, order1, lut1, lut2, mops.initial_table(device),
-            mops.mtf_next(device), torch.as_tensor(words, device=device),
-            t(out_base))
+            mops.mtf_next(device), words,
+            host_to(np.asarray(out_base, np.int64), device))
 
 
 def fused_decode(meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base,
@@ -103,40 +97,17 @@ def fused_decode(meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base,
 fused_decode.launches = 0
 
 
-def _tier_lookup(lo: int, tier, order) -> int:
-    """Alphabet-1 codes of 13..15 bits: the canonical tier compare."""
-    v = lo & 0x7FFF
-    v15 = int(f"{v:015b}"[::-1], 2)          # the MSB-first view
-    for ln in range(13, 16):
-        top = v15 >> (15 - ln)
-        s, cnt, base = tier[0][ln], tier[1][ln], tier[2][ln]
-        if s <= top < s + cnt:
-            pos = min(max(base + top - s, 0), 1023)
-            return order[pos] | (ln << 16)
-    return -1
-
-
 def fused_decode_plain(meta, order1, lut1, lut2, mtf0, mtfnext, words,
                        out_base, out_size: int):
-    """The plain version of K3: the same serial walk in Python.
-
-    State lives in torch tensors (accessed through their numpy views);
-    inputs are read as Python lists.
-    """
+    """The plain version of K3: K1's reader (``entropy_kernel.py``) feeding
+    K2's state machine (``resolve_kernel.Resolver``) in one Python walk."""
     C = meta.shape[0]
-    out = torch.zeros(max(out_size, 1), dtype=torch.uint8)
-    ring_t = torch.zeros(256 * RING, dtype=torch.int32)
-    mtf_t = mtf0.cpu().clone().reshape(-1)
-    mru_t = torch.zeros(512, dtype=torch.int32)
-    head_t = torch.zeros(256, dtype=torch.int32)
+    o = bytearray(max(out_size, 1))
+    r = Resolver(o, mtf0, mtfnext.cpu().tolist())
     status = torch.zeros((C, 4), dtype=torch.int32)
-    o, ring, mtf, mru, head = (out.numpy(), ring_t.numpy(), mtf_t.numpy(),
-                               mru_t.numpy(), head_t.numpy())
-    nxt = mtfnext.cpu().tolist()
     wl = words.cpu().tolist()
-    metal = meta.cpu().tolist()
+    metal = meta[:, :4].cpu().tolist()
     bases = out_base.cpu().tolist()
-    opos = 0
     stop = False
     for c in range(C):
         if stop:
@@ -145,28 +116,20 @@ def fused_decode_plain(meta, order1, lut1, lut2, mtf0, mtfnext, words,
         m = metal[c]
         n_words, rlen, wbase, encpos, new_block = m[0][:5]
         tier = (m[1], m[2], m[3])
-        order = [x for row in order1[c].tolist() for x in row]
-        l1t = [x for row in lut1[c].tolist() for x in row]
-        l2t = [x for row in lut2[c].tolist() for x in row]
-        if new_block:
-            ring[:] = 0
-            head[:] = 0
-            opos = 0
-        mru[:] = 0
-        base = bases[c]
-        opos0 = opos
-        l1 = int(o[base + opos - 1]) if opos >= 1 else 0
-        l2 = int(o[base + opos - 2]) if opos >= 2 else 0
-        acc = (wl[wbase] & 0xFFFFFFFF) | (wl[wbase + 1] & 0xFFFFFFFF) << 32
+        order = order1[c].reshape(-1).tolist()
+        l1t = lut1[c].reshape(-1).tolist()
+        l2t = lut2[c].reshape(-1).tolist()
+        opos0 = r.start_chunk(bases[c], new_block, encpos)
+        acc = (wl[wbase] & M32) | (wl[wbase + 1] & M32) << 32
         nbits, wpos, emitted, bad = 64, 2, 0, False
         while emitted < rlen:
             if nbits < 32:
-                acc |= (wl[wbase + wpos] & 0xFFFFFFFF) << nbits
+                acc |= (wl[wbase + wpos] & M32) << nbits
                 wpos += 1
                 nbits += 32
             e = l1t[acc & 0xFFF]
             if e < 0:
-                e = _tier_lookup(acc & 0xFFFFFFFF, tier, order)
+                e = tier_lookup(acc & M32, tier, order)
             if e < 0:
                 bad = True
                 break
@@ -177,17 +140,12 @@ def fused_decode_plain(meta, order1, lut1, lut2, mtf0, mtfnext, words,
             if wpos > n_words:
                 bad = True
                 break
-            if opos <= 1:                        # raw head byte
-                if opos + 1 > encpos:
+            if r.opos <= 1:                      # raw head byte
+                if not r.head_byte(t):
                     bad = True
                     break
-                b = t & 255
-                o[base + opos] = b
-                opos += 1
                 emitted += 1
-                l1, l2 = b, l1
                 continue
-            ctx = l1
             if t >= 258:                         # match
                 if emitted + 1 >= rlen:
                     bad = True
@@ -201,54 +159,15 @@ def fused_decode_plain(meta, order1, lut1, lut2, mtf0, mtfnext, words,
                 acc >>= hl2 + blen
                 nbits -= hl2 + blen
                 emitted += 2
-                h = (int(head[ctx]) + 1) & (RING - 1)
-                head[ctx] = h
-                src = int(ring[ctx * RING + ((h - midx) & (RING - 1))])
-                ring[ctx * RING + h] = opos
-                mlen = t - 258 + MATCH_MIN_LEN
-                if midx == 0 or src == 0 or src >= opos \
-                        or opos + mlen > encpos:
+                if not r.match(t, midx):
                     bad = True
                     break
-                for k in range(mlen):
-                    o[base + opos + k] = o[base + src + k]
-                opos += mlen
-                cu = int(o[base + opos - 3])
-                l2, l1 = int(o[base + opos - 2]), int(o[base + opos - 1])
-                wu = l2 << 8 | l1
-                if mru[cu * 2] != wu:
-                    mru[cu * 2 + 1] = mru[cu * 2]
-                    mru[cu * 2] = wu
                 continue
-            n = 1 if t < 256 else 2
-            if opos + n > encpos:
+            if not r.simple(t):                  # literal or word-MRU hit
                 bad = True
                 break
-            h = (int(head[ctx]) + 1) & (RING - 1)
-            head[ctx] = h
-            ring[ctx * RING + h] = opos
             emitted += 1
-            if t < 256:                          # literal
-                lit = int(mtf[ctx * 256 + t])
-                j = nxt[t]
-                mtf[ctx * 256 + t] = mtf[ctx * 256 + j]
-                mtf[ctx * 256 + j] = lit
-                o[base + opos] = lit
-                mru[l2 * 2 + 1] = mru[l2 * 2]
-                mru[l2 * 2] = ctx << 8 | lit
-                opos += 1
-                l1, l2 = lit, ctx
-            else:                                # word-MRU hit
-                wv = int(mru[ctx * 2 + (t & 1)])
-                b0, b1 = (wv >> 8) & 255, wv & 255
-                o[base + opos] = b0
-                o[base + opos + 1] = b1
-                if t == 257:
-                    mru[ctx * 2 + 1] = mru[ctx * 2]
-                    mru[ctx * 2] = wv
-                opos += 2
-                l1, l2 = b1, b0
-        bad = bad or (wpos * 32 - nbits > n_words * 32) or opos != encpos
-        status[c] = torch.tensor([opos, emitted, int(bad), opos0])
+        bad = bad or (wpos * 32 - nbits > n_words * 32) or r.opos != encpos
+        status[c] = torch.tensor([r.opos, emitted, int(bad), opos0])
         stop = bad
-    return out[:out_size], status
+    return torch.frombuffer(o, dtype=torch.uint8)[:out_size], status

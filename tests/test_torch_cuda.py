@@ -22,10 +22,13 @@ import libzling_tpu_torch as zt
 from libzling_tpu import spec
 from libzling_tpu.tables import SENTINEL_LEN
 from libzling_tpu_torch import device as tdevice
+from libzling_tpu_torch import group_decode as tgd
 from libzling_tpu_torch.group_encode import GROUP_BLOCKS
 from libzling_tpu_torch.ops import decode_fused as tfk
+from libzling_tpu_torch.ops import entropy_kernel as tek
 from libzling_tpu_torch.ops import mtf as tmtf
 from libzling_tpu_torch.ops import relabel_kernel as trk
+from libzling_tpu_torch.ops import resolve_kernel as tresk
 from libzling_tpu_torch.ops import tokenize_kernel as ttk
 
 pytestmark = pytest.mark.cuda
@@ -141,3 +144,86 @@ def test_decode_kernel_equals_plain_on_bit_flips(cuda):
         torch.cuda.synchronize()
         assert torch.equal(got[1].cpu(), want[1])
         assert torch.equal(got[0].cpu(), want[0])
+
+
+def _on(args, dev):
+    return [a.to(dev) if torch.is_tensor(a) else a for a in args]
+
+
+def _split_equal(cuda, s, c0, c1, mtf0):
+    """K1 then K2 over chunks [c0, c1): kernel == plain on every token,
+    status word, byte and MTF entry; returns the plain exit table."""
+    k1, k2 = s.stage_split(c0, c1, "cpu")
+    want = tek.decode_chunks(*k1)
+    got = tek.decode_chunks(*_on(k1, cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    tokens = want[0]
+    want = tresk.resolve_stream(tokens, *k2, mtf0)
+    got = tresk.resolve_stream(tokens.to(cuda), *_on(k2, cuda), mtf0.to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    return want[2]
+
+
+@pytest.mark.parametrize("level", [0, 4, 6])
+def test_split_kernels_equal_plain(cuda, level):
+    # K2 in two calls, the second from the first's exit MTF table
+    data = _data(level)
+    stream = zt.encode(data, level, device=cuda, **GEOM)
+    s = tgd.parse(stream)
+    B = len(s.block_base) - 1
+    assert B >= 2
+    table = tmtf.initial_table("cpu")
+    for b0, b1 in ((0, B // 2), (B // 2, B)):
+        table = _split_equal(cuda, s, *s.chunks_of(b0, b1), table)
+    assert not torch.equal(table, tmtf.initial_table("cpu"))
+    assert zt.decode(stream, device=cuda, fused=False) == data
+
+
+def test_split_kernels_equal_plain_on_bit_flips(cuda):
+    # corrupt payloads through K1 and K2: in bounds, and equal to the plain
+    # versions on every status word and byte
+    rng = np.random.default_rng(29)
+    stream = zt.encode(_data(5), 2, device="cpu", **GEOM)
+    for _ in range(24):
+        bad = bytearray(stream)
+        k = int(rng.integers(13, len(bad) - 1))
+        bad[k] ^= 1 << int(rng.integers(8))
+        try:
+            s = tgd.parse(bytes(bad))
+        except ValueError:            # the framing itself broke
+            continue
+        if s is not None:
+            _split_equal(cuda, s, 0, len(s.rlens), tmtf.initial_table("cpu"))
+
+
+def test_decode_groups_round_trip_on_card(cuda):
+    data = _data(7) * 2
+    stream = spec.encode(data, 1, block_size=1024, max_tokens=300)
+    assert len(tgd.parse(stream).block_base) > 4
+    probe = {}
+    assert zt.decode_groups(stream, device=cuda, group_blocks=1,
+                            stage_probe=probe) == data
+    assert zt.decode_groups(stream, device=cuda, group_blocks=3) == data
+    assert probe["entropy_s"] > 0 and probe["resolve_s"] > 0
+
+
+def test_group_loop_does_not_wait_for_the_card(cuda):
+    # staging and launching every group enqueues work without a blocking
+    # copy or a synchronisation (the per-device constants are warm)
+    data = _data(8) * 2
+    stream = spec.encode(data, 1, block_size=1024, max_tokens=300)
+    assert zt.decode_groups(stream, device=cuda) == data
+    s = tgd.parse(stream)
+    mtf0 = tmtf.initial_table(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = tgd.launch_groups(s, cuda, 1, mtf0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(pending) == len(s.block_base) - 1
+    assert b"".join(p[2].cpu().numpy().tobytes() for p in pending) == data
