@@ -27,12 +27,23 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      (both 16 MiB blocks, 262,144-token chunks, the e0 stream) against its
      plain version (exact equality), timed;
   5. corrupt streams (match index 0, encpos mismatch) must raise
-     ValueError through the fused, split and group paths on the card.
+     ValueError through the fused, split and group paths on the card;
+  6. the cost probes (``libzling_tpu_torch.probes``): build their library,
+     hold every probe kernel to its plain version at 65,536 steps (both
+     words, and the arrays the shift and index probes return), from zero
+     state (the timed runs' state) and from seeded state; then, with every
+     probe count at 0, the three probe modules' own measurements at their
+     full loop counts (``measure_all``), one line each with ns and cycles
+     a step and the SM clock they imply; every probe must have launched,
+     and only the shared-memory launch one byte past the card's opt-in
+     limit may be refused (and must be).
 
 The second-to-last line is a JSON object with each kernel's launches in
 the main path, its largest error over both comparisons, and its time and
-its plain version's at the main path's e0 shapes; the last line is
-``{"ok": true, "device": {...}}``.
+its plain version's at the main path's e0 shapes -- and for each probe row
+its launches in phase 6, its largest error, and per variant its time and
+cycles a step at the full loop count and its plain version's time at
+``plain_n`` steps; the last line is ``{"ok": true, "device": {...}}``.
 The script needs one CUDA device and imports no JAX.
 """
 
@@ -326,6 +337,117 @@ def chunk_stream(tokens, encpos: int) -> bytes:
             + payload + b"\x00")
 
 
+PROBE_N = 65536      # steps of the kernel == plain checks of phase 6
+
+
+def probe_modules() -> dict:
+    """The probe modules by name; each has ``ROWS`` (probe row -> wrapper,
+    the TPU probe lines it replaces), ``SOURCE`` and ``measure_all``."""
+    import importlib
+
+    return {m: importlib.import_module(f"libzling_tpu_torch.probes.{m}")
+            for m in ("tokenize_cost", "scalar_cost", "limits")}
+
+
+def probe_err(got, want) -> int:
+    """Largest difference over a probe's two words (and its array)."""
+    if isinstance(got, tuple):
+        return max(probe_err(got[0], want[0]),
+                   max_abs_err([(got[1], want[1])]))
+    return max(abs(got.word0 - want.word0), abs(got.word1 - want.word1))
+
+
+def check_probes(dev):
+    """Phase 6a: every probe kernel against its plain version at PROBE_N
+    steps (exact equality), from zero state and from seeded state.
+    Returns {row: dict(max_abs_err, plain=[per variant])}."""
+    from libzling_tpu_torch.probes import limits as pl
+    from libzling_tpu_torch.probes import scalar_cost as ps
+    from libzling_tpu_torch.probes import tokenize_cost as pt
+
+    rows = {}
+
+    def compare(card, host):
+        for (row, name, steps, kcall), (_, _, _, pcall) in zip(card, host):
+            got = kcall()
+            t = time.perf_counter()
+            want = pcall()
+            plain_ms = (time.perf_counter() - t) * 1e3
+            r = rows.setdefault(row, dict(max_abs_err=0, plain={}))
+            r["max_abs_err"] = max(r["max_abs_err"], probe_err(got, want))
+            r["plain"].setdefault(name, dict(plain_ms=plain_ms,
+                                             plain_n=steps))
+
+    n = PROBE_N
+    compare(ps.cases(n, dev), ps.cases(n, "cpu"))
+    compare(ps.cases(n, dev, seed=1), ps.cases(n, "cpu", seed=1))
+    compare(pt.cases(n, dev), pt.cases(n, "cpu"))
+    compare(pt.cases(n, dev, seed=29), pt.cases(n, "cpu", seed=29))
+    compare(pl.cases(n, dev), pl.cases(n, "cpu"))
+    optin = pl.smem_optin(dev)
+    compare([("PL2", f"smem {b} B", 1, lambda b=b: pl.smem_ceiling(b, dev))
+             for b in pl.smem_sizes(optin)[:-1]],
+            [("PL2", "", 1, lambda b=b: pl.smem_ceiling(b, "cpu"))
+             for b in pl.smem_sizes(optin)[:-1]])
+    try:
+        pl.smem_ceiling(optin + 1, dev)
+    except RuntimeError:
+        pass
+    else:
+        raise AssertionError(f"a launch with {optin + 1} B of shared "
+                             "memory was not refused")
+    for row, r in rows.items():
+        assert r["max_abs_err"] == 0, (row, r)
+    return rows
+
+
+def drive_probes(dev):
+    """Phase 6b: the probe modules' own measurements at their full loop
+    counts, every count at 0 just before and read just after.  Returns
+    (rows by module, launches by probe row)."""
+    mods = probe_modules()
+    wrappers = {row: fn for mod in mods.values()
+                for row, (fn, _) in mod.ROWS.items()}
+    for f in wrappers.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    out = {m: mod.measure_all(dev) for m, mod in mods.items()}
+    torch.cuda.synchronize()
+    launches = {row: f.launches for row, f in wrappers.items()}
+    assert all(launches.values()), launches
+    refused = [r for r in out["limits"] if not r["ok"]]
+    assert len(refused) == 1 and refused[0] is out["limits"][-1], refused
+    return out, launches
+
+
+def probe_rows(checked, measured, launches):
+    """The kernels-line rows of the probes."""
+    variants = {}
+    for rows in measured.values():
+        for r in rows:
+            if r.get("ok", True):
+                variants.setdefault(r["row"], []).append(r)
+    out = []
+    for mod in probe_modules().values():
+        for row, (_, replaces) in mod.ROWS.items():
+            plain = checked[row]["plain"]
+            vs = [dict(name=r["name"], ms=r["ms"], n=r["n"],
+                       ns_per_iter=r["ns_per_iter"],
+                       cycles_per_iter=r["cycles_per_iter"], ghz=r["ghz"],
+                       **plain.get(r["name"], {}))
+                  for r in variants[row]]
+            d = dict(name=row, route="cuda", source=mod.SOURCE,
+                     replaces=replaces[0], launches=launches[row],
+                     max_abs_err=checked[row]["max_abs_err"],
+                     ms=sum(v["ms"] for v in vs),
+                     plain_ms=sum(p["plain_ms"] for p in plain.values()),
+                     variants=vs)
+            if replaces[1:]:
+                d["also_replaces"] = ", ".join(replaces[1:])
+            out.append(d)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -438,6 +560,24 @@ def main() -> int:
     t0 = phase("corrupt", t0, "rejected by the fused, split and group "
                "paths: matchidx_zero, encpos_mismatch")
 
+    # ---- 6. the cost probes
+    t = time.perf_counter()
+    _build.probes_lib()
+    t0 = phase("probes: build", t0, f"{time.perf_counter() - t:.1f} s")
+    checked = check_probes(dev)
+    t0 = phase("probes: kernel==plain", t0, json.dumps(
+        {row: r["max_abs_err"] for row, r in checked.items()}))
+    measured, probe_launches = drive_probes(dev)
+    for m, rows_m in measured.items():
+        print(f"[probes {m}] " + json.dumps([
+            dict(row=r["row"], name=r["name"], ok=r["ok"],
+                 error=r["error"]) if not r.get("ok", True) else
+            dict(row=r["row"], name=r["name"], n=r["n"],
+                 ns=round(r["ns_per_iter"], 3),
+                 cyc=round(r["cycles_per_iter"], 2), ghz=round(r["ghz"], 4))
+            for r in rows_m]), flush=True)
+    t0 = phase("probes: measured", t0, json.dumps(probe_launches))
+
     assert "jax" not in sys.modules
     csrc = "libzling_tpu_torch/csrc/"
     info = {
@@ -457,7 +597,7 @@ def main() -> int:
              max_abs_err=max(rows[k]["max_abs_err"],
                              full[k]["max_abs_err"]),
              ms=full[k]["ms"], plain_ms=full[k]["plain_ms"])
-        for k in kernels]}))
+        for k in kernels] + probe_rows(checked, measured, probe_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,12 @@
 Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``,
 all of them at once, and the objects are linked into ONE shared library
 with a plain C interface under ``build/kernels/``, at first use, keyed by a
-hash of the sources and flags -- the same pattern as the JAX package's
-native engine (``libzling_tpu/native/engine.py::_build``): the build writes
+hash of the sources and flags (``lib()``).  The cost probes
+(``csrc/probes/*.cu``, ``probes/``) are a second library built the same way
+(``probes_lib()``), keyed by their own sources and the shared headers
+``csrc/*.cuh``, so that neither library rebuilds the other.  The pattern
+is the JAX package's native engine's
+(``libzling_tpu/native/engine.py::_build``): the build writes
 a temp file and renames it, so concurrent processes never load a
 half-written library.  The library is loaded with ctypes; each entry point
 takes device pointers and the CUDA stream as ``c_void_p`` and returns
@@ -30,7 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -56,6 +60,38 @@ _SIGNATURES = {
     "zlt_relabel": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
 }
 
+# the cost probes (csrc/probes/*.cu); `out` is u64 [3]: word 0, word 1,
+# cycles
+_PROBE_SIGNATURES = {
+    # config, n, depth, hash, chain, slot, block, stg, out, stream
+    "zlp_unit": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    # n, rows, table, out, stream
+    "zlp_serial3": [_I, _I, _P, _P, _P],
+    # variant, n, init, g, out, stream
+    "zlp_loop": [_I, _I, _P, _P, _P, _P],
+    # n, init, obuf, out, stream
+    "zlp_entropy": [_I, _P, _P, _P, _P],
+    # n, init, hbm, out, stream
+    "zlp_dma_whens": [_I, _P, _P, _P, _P],
+    # ndma, nwords, toward_global, smem_init, hbm, out, stream
+    "zlp_dma": [_I, _I, _I, _P, _P, _P, _P],
+    # layers, n, init, ring, obytes, out, stream
+    "zlp_match": [_I, _I, _P, _P, _P, _P, _P],
+    # steps, nxt, smem_bytes, out, stream
+    "zlp_resident": [_I, _P, _I, _P, _P],
+    # device
+    "zlp_smem_optin": [_I],
+    # bytes, x, out, stream
+    "zlp_smem_ceiling": [_I, _I, _P, _P],
+    # kind, n, s, x, y, out, stream
+    "zlp_dyn_shift": [_I, _I, _I, _P, _P, _P, _P],
+    # kind, n, row, lane, x, y, out, stream
+    "zlp_dyn_index": [_I, _I, _I, _I, _P, _P, _P, _P],
+    # ballot, n, x, out, stream
+    "zlp_warp_mix": [_I, _I, _P, _P, _P],
+}
+PROBE_FLAGS = ["-Xptxas", "-v"]   # ptxas's register, stack and spill report
+
 
 def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
@@ -64,24 +100,33 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build() -> pathlib.Path:
-    """Compile csrc/*.cu (if not already built) and return the library."""
-    srcs = sorted(_CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(_CSRC.glob("*.cu*")):
+def source_hash(src_dir: pathlib.Path, headers=(), flags=()) -> str:
+    """The key of a library: its flags, and the name and bytes of every
+    ``*.cu*`` file of ``src_dir`` (not recursive) and of ``headers``."""
+    h = hashlib.sha256(" ".join([*NVCC_FLAGS, *flags]).encode())
+    for p in sorted(src_dir.glob("*.cu*")) + sorted(headers):
         h.update(p.name.encode() + p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(src_dir: pathlib.Path = _CSRC, stem: str = "libzlt_kernels",
+          headers=(), flags=()) -> pathlib.Path:
+    """Compile ``src_dir/*.cu`` (if not already built) into
+    ``build/kernels/<stem>_<hash>.so`` and return it.  nvcc's output of
+    each source is kept beside it as ``<stem>_<hash>.log``."""
+    srcs = sorted(src_dir.glob("*.cu"))
     out_dir = _REPO / "build" / "kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"libzlt_kernels_{h.hexdigest()[:16]}.so"
+    lib = out_dir / f"{stem}_{source_hash(src_dir, headers, flags)}.so"
     if lib.exists():
         return lib
     nvcc = _nvcc()
-    tmp = out_dir / f"tmp{os.getpid()}"
+    tmp = out_dir / f"tmp{os.getpid()}_{stem}"
     tmp.mkdir(exist_ok=True)
     try:
         objs = [tmp / (p.stem + ".o") for p in srcs]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(p)], stdout=subprocess.PIPE,
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o",
+                                   str(o), str(p)], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
                  for p, o in zip(srcs, objs)]
         logs = [p.communicate()[0] for p in procs]   # waits for every one
@@ -95,24 +140,41 @@ def build() -> pathlib.Path:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
                                f"{r.stderr}")
+        lib.with_suffix(".log").write_text(
+            "".join(f"== {src.name}\n{log}" for src, log in zip(srcs, logs)))
         so.replace(lib)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return lib
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _LIB
+def _load(key: str, path_fn, signatures) -> ctypes.CDLL:
     with _LOCK:
-        if _LIB is None:
-            dll = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
+        if key not in _LIBS:
+            dll = ctypes.CDLL(str(path_fn()))
+            for name, argtypes in signatures.items():
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _LIB = dll
-    return _LIB
+            _LIBS[key] = dll
+    return _LIBS[key]
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    return _load("kernels", build, _SIGNATURES)
+
+
+def probe_build() -> pathlib.Path:
+    """Build (if needed) the probe library: ``csrc/probes/*.cu``, keyed by
+    those sources and the shared headers ``csrc/*.cuh``."""
+    return build(_CSRC / "probes", "libzlt_probes",
+                 headers=_CSRC.glob("*.cuh"), flags=PROBE_FLAGS)
+
+
+def probes_lib() -> ctypes.CDLL:
+    """The loaded cost-probe library (built on first call)."""
+    return _load("probes", probe_build, _PROBE_SIGNATURES)
 
 
 def check(err: int, name: str) -> None:

@@ -30,6 +30,9 @@ from libzling_tpu_torch.ops import mtf as tmtf
 from libzling_tpu_torch.ops import relabel_kernel as trk
 from libzling_tpu_torch.ops import resolve_kernel as tresk
 from libzling_tpu_torch.ops import tokenize_kernel as ttk
+from libzling_tpu_torch.probes import limits as plim
+from libzling_tpu_torch.probes import scalar_cost as pscal
+from libzling_tpu_torch.probes import tokenize_cost as ptok
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +230,40 @@ def test_group_loop_does_not_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert len(pending) == len(s.block_base) - 1
     assert b"".join(p[2].cpu().numpy().tobytes() for p in pending) == data
+
+
+def _probe_pairs(name, dev, n):
+    """(card cases, CPU cases) of a probe module: zero state and seeded
+    state."""
+    if name == "scalar_cost":
+        return [(pscal.cases(n, dev), pscal.cases(n, "cpu")),
+                (pscal.cases(n, dev, seed=2), pscal.cases(n, "cpu", seed=2))]
+    if name == "tokenize_cost":
+        return [(ptok.cases(n, dev), ptok.cases(n, "cpu")),
+                (ptok.cases(n, dev, seed=29), ptok.cases(n, "cpu", seed=29))]
+    sizes = (16 * 1024, 256 * 1024)
+    return [(plim.cases(n, dev, sizes), plim.cases(n, "cpu", sizes))]
+
+
+@pytest.mark.parametrize("name", ["scalar_cost", "tokenize_cost", "limits"])
+def test_probe_kernels_equal_plain(cuda, name):
+    # both words (and the rotated / indexed arrays) of every probe kernel
+    for card, host in _probe_pairs(name, cuda, 8192):
+        for (row, variant, _, kcall), (_, _, _, pcall) in zip(card, host):
+            got, want = kcall(), pcall()
+            if isinstance(got, tuple):
+                assert torch.equal(got[1].cpu(), want[1]), variant
+                got, want = got[0], want[0]
+            assert (got.word0, got.word1) == (want.word0, want.word1), \
+                (row, variant)
+            assert got.cycles > 0
+
+
+def test_probe_shared_memory_ceiling(cuda):
+    optin = plim.smem_optin(cuda)
+    for nbytes in plim.smem_sizes(optin)[:-1]:
+        got = plim.smem_ceiling(nbytes, cuda)
+        want = plim.smem_ceiling(nbytes, "cpu")
+        assert (got.word0, got.word1) == (want.word0, want.word1)
+    with pytest.raises(RuntimeError):
+        plim.smem_ceiling(optin + 1, cuda)
