@@ -13,21 +13,28 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      several blocks and chunks, levels 0, 4 and 6, text mixed with random
      bytes, K5 and K2 each started a second time from the first call's
      exit MTF state, and K1 + K2 on a crafted chunk whose first head byte
-     is a match symbol -- with each one's time beside the plain one's;
+     is a match symbol -- then inputs aimed at K4's and K3's designs
+     (``design_cases``: a run of one byte, e6 on repetitive text, matches of
+     259, copies overlapping by 1..20 bytes, 40-token chunks) through K4,
+     K3, K1 and K2, and K3 on ``crafted_streams`` (a head-byte match symbol,
+     a match without its index, corrupt tokens thousands of tokens into a
+     chunk), with each one's time beside the plain one's;
   4. the main path at full size: a 32 MiB corpus (1 MiB of random bytes
      spliced into the middle, so the adaptive level drop fires) encoded at
-     e0 through ``libzling_tpu_torch.encode`` must equal the native
-     engine's canonical stream, and decode back through the fused path
-     (K3), the split path (``decode(fused=False)``: K1 -> K2) and the
+     e0 through ``libzling_tpu_torch.encode`` must equal the port's own
+     native engine's canonical stream, and decode back through the fused
+     path (K3), the split path (``decode(fused=False)``: K1 -> K2) and the
      group path (``decode_groups``, one block a group, the MTF table
      carried across the group edge); the same at e4 on 20 MiB (one full
      16 MiB block and a partial one).  Every count is set to 0 just before
      each path and read just after it; each kernel of the path must have
      launched.  Then each kernel again on the inputs the e0 run gave it
      (both 16 MiB blocks, 262,144-token chunks, the e0 stream) against its
-     plain version (exact equality), timed;
-  5. corrupt streams (match index 0, encpos mismatch) must raise
-     ValueError through the fused, split and group paths on the card;
+     plain version (exact equality), timed, with the bytes it must move;
+     K4 also alone at the e4 shapes (timed);
+  5. corrupt streams (match index 0, encpos mismatch, a match without its
+     index, corrupt tokens mid-chunk) must raise ValueError through the
+     fused, split and group paths on the card;
   6. the cost probes (``libzling_tpu_torch.probes``): build their library,
      hold every probe kernel to its plain version at 65,536 steps (both
      words, and the arrays the shift and index probes return), from zero
@@ -38,12 +45,15 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      and only the shared-memory launch one byte past the card's opt-in
      limit may be refused (and must be).
 
-The second-to-last line is a JSON object with each kernel's launches in
-the main path, its largest error over both comparisons, and its time and
-its plain version's at the main path's e0 shapes -- and for each probe row
-its launches in phase 6, its largest error, and per variant its time and
-cycles a step at the full loop count and its plain version's time at
-``plain_n`` steps; the last line is ``{"ok": true, "device": {...}}``.
+A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K2 per token)
+in ns and in SM cycles at the clock the long probes read.  The
+second-to-last line is a JSON object with each kernel's launches in the
+main path, its largest error over both comparisons, its time and its plain
+version's at the main path's e0 shapes, and its bound (the bytes it must
+move over 3.35 TB/s) -- and for each probe row its launches in phase 6,
+its largest error, its bound, and per variant its time and cycles a step
+at the full loop count and its plain version's time at ``plain_n`` steps;
+the last line is ``{"ok": true, "device": {...}}``.
 The script needs one CUDA device and imports no JAX.
 """
 
@@ -61,6 +71,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 SMALL = dict(block_size=4096, max_tokens=700)
 MiB = 1 << 20
+HBM_BYTES_PER_S = 3.35e12      # one H100 SXM's device memory, data sheet
 
 
 def phase(name: str, t0: float, detail: str = "") -> float:
@@ -143,9 +154,111 @@ def small_data(seed: int = 7) -> bytes:
     return text[:9000] + noise + text[9000:19000]
 
 
+def design_cases() -> dict:
+    """Inputs aimed at K4's and K3's designs: name -> (bytes, levels,
+    geometry).  A run of one byte (the lazy probe's head is the entry the
+    insert just wrote; copies overlapping by one byte), e6 on repetitive
+    text (depth 128, lazy 16 and 8), matches of length 259, copies
+    overlapping by 1..20 bytes, and chunks of 40 tokens (the token cap lands
+    inside the lazy lanes' look-ahead at pos+1 and pos+2)."""
+    rng = np.random.default_rng(4)
+    text = small_data()
+    periods = b"".join(
+        bytes(rng.integers(0, 256, p, dtype=np.uint8)) * (300 // p)
+        + bytes(rng.integers(0, 256, 5, dtype=np.uint8)) for p in range(1, 21))
+    block = bytes(rng.integers(0, 256, 600, dtype=np.uint8))
+    return {
+        "one-byte run": (b"a" * 6000 + text[:4000] + bytes(3000), (0, 4),
+                         SMALL),
+        "e6 repetitive text": (
+            b"the quick brown fox jumps over the lazy dog. " * 300, (6,),
+            SMALL),
+        "matches of 259": (block * 16, (0, 6), SMALL),
+        "overlapping copies": (periods, (0, 4), SMALL),
+        "token cap in the look-ahead": (text[:12000], (0, 4),
+                                        dict(block_size=4096, max_tokens=40)),
+    }
+
+
+def crafted_streams() -> dict:
+    """One-chunk streams for K3's producer checks: name -> stream.  A match
+    symbol as a block's first head byte (no index bits read), a last match
+    without room for its index, and corrupt tokens (index 0, an unwritten
+    ring slot) thousands of tokens into a chunk, which the producer has
+    decoded past when the resolver meets them."""
+    lits = [65 + i % 23 for i in range(3000)]
+    return {
+        "head-byte match symbol": chunk_stream([258, 5, 65, 66], 4),
+        "match without its index": chunk_stream([65, 66, 67, 258, 1], 5, 4),
+        "index 0 mid-chunk": chunk_stream(lits + [258, 0] + lits, 6004),
+        "unwritten slot mid-chunk": chunk_stream(lits + [300, 4000] + lits,
+                                                 6050),
+    }
+
+
+def tokenize_args(data: bytes, level: int, geom: dict, mixed: bool = False):
+    """K4's inputs for ``data`` cut in blocks of ``geom``: (buf, the rest
+    of ``tokenize``'s arguments); ``mixed`` puts level 0 in every block's
+    second chunk."""
+    from libzling_tpu_torch.ops import tokenize_kernel as tkk
+    from libzling_tpu_torch.tables import SENTINEL_LEN
+
+    bs, mt = geom["block_size"], geom["max_tokens"]
+    nb = -(-len(data) // bs)
+    max_chunks = -(-bs // (mt // 2)) + 2
+    buf = torch.zeros(len(data) + SENTINEL_LEN, dtype=torch.uint8)
+    buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    offs = torch.arange(nb, dtype=torch.int64) * bs
+    lens = torch.clamp(len(data) - offs, max=bs).to(torch.int32)
+    sched = np.full((nb, max_chunks), level)
+    if mixed:
+        sched[:, 1] = 0
+    return buf, (offs, lens, offs, tkk.level_params(sched, "cpu"), mt,
+                 len(data))
+
+
+def check_designs(dev, z, row):
+    """Phase 3b: K4, K3, K1 and K2 against their plain versions on
+    ``design_cases`` and K3 on ``crafted_streams`` (bytes and statuses,
+    corrupt or not)."""
+    from libzling_tpu_torch import device as zdev
+    from libzling_tpu_torch import group_decode as gd
+    from libzling_tpu_torch.ops import decode_fused as fk
+    from libzling_tpu_torch.ops import tokenize_kernel as tkk
+
+    def timed(name, kernel, plain):
+        got = kernel()
+        t = time.perf_counter()
+        want = plain()
+        row(name, max_abs_err(zip(got, want)), cuda_ms(kernel, 1),
+            (time.perf_counter() - t) * 1e3)
+        return want
+
+    for data, levels, geom in design_cases().values():
+        for level in levels:
+            buf, args = tokenize_args(data, level, geom)
+            bufd = buf.to(dev)
+            want = timed("tokenize", lambda: tkk.tokenize(bufd, *args),
+                         lambda: tkk.tokenize_plain(buf, *args))
+            assert int(want[3][:, 1].max()) == 0
+            stream = z.encode(data, level, device=dev, **geom)
+            assert z.decode(stream, device=dev) == data
+            dargs, size, _ = zdev.decode_args(stream, "cpu")
+            dargs_d = on(dargs, dev)
+            timed("decode_fused",
+                  lambda: fk.fused_decode(*dargs_d, out_size=size),
+                  lambda: fk.fused_decode_plain(*dargs, out_size=size))
+            st = gd.parse(stream)
+            assert check_split(dev, st, [(0, len(st.rlens))], row) == data
+    for stream in crafted_streams().values():
+        dargs, size, _ = zdev.decode_args(stream, "cpu")
+        dargs_d = on(dargs, dev)
+        timed("decode_fused", lambda: fk.fused_decode(*dargs_d, out_size=size),
+              lambda: fk.fused_decode_plain(*dargs, out_size=size))
+
+
 def check_kernels(dev, z):
     """Phase 3: each kernel against its plain version; returns their rows."""
-    from libzling_tpu.tables import SENTINEL_LEN
     from libzling_tpu_torch import device as zdev
     from libzling_tpu_torch import group_decode as gd
     from libzling_tpu_torch.ops import decode_fused as fk
@@ -154,14 +267,6 @@ def check_kernels(dev, z):
     from libzling_tpu_torch.ops import tokenize_kernel as tkk
 
     data = small_data()
-    bs, mt = SMALL["block_size"], SMALL["max_tokens"]
-    nb = -(-len(data) // bs)
-    max_chunks = -(-bs // (mt // 2)) + 2
-    buf = torch.zeros(len(data) + SENTINEL_LEN, dtype=torch.uint8)
-    buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
-    bufd = buf.to(dev)
-    offs = torch.arange(nb, dtype=torch.int64) * bs
-    lens = torch.clamp(len(data) - offs, max=bs).to(torch.int32)
     rows = {}
 
     def row(name, err, ms, plain_ms):
@@ -173,10 +278,9 @@ def check_kernels(dev, z):
     state = mops.initial_state("cpu")
     nxt = mops.mtf_next("cpu")
     for level in (0, 4, 6):
-        sched = np.full((nb, max_chunks), level)
-        sched[:, 1] = 0                      # a mixed schedule in each block
-        params = tkk.level_params(sched, "cpu")
-        args = (offs, lens, offs, params, mt, len(data))
+        # a mixed schedule in each block
+        buf, args = tokenize_args(data, level, SMALL, mixed=True)
+        bufd, offs, nb = buf.to(dev), args[0], len(args[0])
         got = tkk.tokenize(bufd, *args)
         t = time.perf_counter()
         want = tkk.tokenize_plain(buf, *args)
@@ -225,6 +329,7 @@ def check_kernels(dev, z):
     # as the second head byte (the JAX split decoder and spec.decode agree)
     st = gd.parse(chunk_stream([258, 5, 65, 66], 4))
     assert check_split(dev, st, [(0, 1)], row) == b"\x02\x056L"
+    check_designs(dev, z, row)
     for r in rows.values():
         assert r["max_abs_err"] == 0, rows
     return rows
@@ -238,8 +343,8 @@ def check_full_size(data: bytes, stream: bytes, dev):
     copies of the same inputs (exact equality).  One launch each, timed
     with CUDA events; the plain version's host time beside it.  Returns the
     rows and the unit and token counts walked."""
-    from libzling_tpu.tables import (BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ,
-                                     SENTINEL_LEN)
+    from libzling_tpu_torch.tables import (BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ,
+                                           SENTINEL_LEN)
     from libzling_tpu_torch import device as zdev
     from libzling_tpu_torch import group_decode as gd
     from libzling_tpu_torch.ops import decode_fused as fk
@@ -251,14 +356,17 @@ def check_full_size(data: bytes, stream: bytes, dev):
 
     rows = {}
 
-    def check(name, kernel, plain):
+    def check(name, kernel, plain, moved):
+        """One timed launch of ``kernel`` against ``plain``; ``moved(got)``
+        is the bytes the function must move (inputs read once, outputs
+        written once), for its bound."""
         got = []
         ms = cuda_ms(lambda: got.append(kernel()), 1, False)
         t = time.perf_counter()
         want = plain()
         plain_ms = (time.perf_counter() - t) * 1e3
         rows[name] = dict(max_abs_err=max_abs_err(zip(got[0], want)), ms=ms,
-                          plain_ms=plain_ms)
+                          plain_ms=plain_ms, bytes=moved(want))
         return want
 
     buf = torch.zeros(len(data) + SENTINEL_LEN, dtype=torch.uint8)
@@ -271,48 +379,78 @@ def check_full_size(data: bytes, stream: bytes, dev):
     max_chunks = -(-BLOCK_SIZE_IN // (BLOCK_SIZE_ROLZ // 2)) + 1
     params = tkk.level_params(np.zeros((nb, max_chunks), np.int64), "cpu")
     args = (offs, lens, offs, params, BLOCK_SIZE_ROLZ, len(data))
-    units, _, cstat, bstat = check(
+    # K4 reads the block bytes and writes each unit and its position once
+    units, upos, cstat, bstat = want = check(
         "tokenize", lambda: tkk.tokenize(bufd, *args),
-        lambda: tkk.tokenize_plain(buf, *args))
+        lambda: tkk.tokenize_plain(buf, *args),
+        lambda w: nbytes(buf, *args, w[2], w[3])
+        + 8 * int(w[2][:, :, 0].sum()))
     assert not bstat[:, 1].any()
-
     cnt = cstat[:, :, 0].sum(1)
+    # K4's blocks run side by side: its time is its longest block's walk
+    rows["tokenize"].update(units=int(cnt.sum()), walker_units=int(cnt.max()))
+    # K4 alone at the e4 main path's shapes: 20 MiB, the schedule
+    # group_encode launches first at e4 (level 4 in every chunk slot)
+    n4 = 20 * MiB
+    args4 = (offs, torch.clamp(n4 - offs, max=BLOCK_SIZE_IN).to(torch.int32),
+             offs, tkk.level_params(np.full((nb, max_chunks), 4), "cpu"),
+             BLOCK_SIZE_ROLZ, n4)
+    buf4 = torch.zeros(n4 + SENTINEL_LEN, dtype=torch.uint8, device=dev)
+    buf4[:n4] = bufd[:n4]
+    got = []
+    ms = cuda_ms(lambda: got.append(tkk.tokenize(buf4, *args4)), 1, False)
+    assert not got[0][3][:, 1].any()
+    rows["tokenize"]["e4"] = dict(
+        ms=ms, units=int(got[0][2][:, :, 0].sum()),
+        walker_units=int(got[0][2][:, :, 0].sum(1).max()), bytes=n4)
+
     rargs = (units, offs, cnt, mops.initial_state("cpu"),
              mops.mtf_next("cpu"))
     rargs_d = [a.to(dev) for a in rargs]
+    n_units = int(cnt.sum())
     check("relabel", lambda: rlk.relabel(*rargs_d),
-          lambda: rlk.relabel_plain(*rargs))
+          lambda: rlk.relabel_plain(*rargs),
+          lambda w: nbytes(*rargs[1:], w[1]) + 8 * n_units)
 
     dargs, size, rlens = zdev.decode_args(stream, "cpu")
     dargs_d = [a.to(dev) for a in dargs]
     out, status = check(
         "decode_fused", lambda: fk.fused_decode(*dargs_d, out_size=size),
-        lambda: fk.fused_decode_plain(*dargs, out_size=size))
+        lambda: fk.fused_decode_plain(*dargs, out_size=size),
+        lambda w: nbytes(*dargs, *w))
     assert out.numpy().tobytes() == data and not status[:, 2].any()
 
     st = gd.parse(stream)
     k1, k2 = st.stage_split(0, len(st.rlens), "cpu")
     k1d, k2d = on(k1, dev), on(k2, dev)
     tokens, estatus = check("entropy_decode", lambda: ek.decode_chunks(*k1d),
-                            lambda: ek.decode_chunks_plain(*k1))
+                            lambda: ek.decode_chunks_plain(*k1),
+                            lambda w: nbytes(*k1, *w))
     assert not estatus[:, 2].any()
     assert estatus[:, 0].tolist() == st.rlens.tolist()
     table = mops.initial_table("cpu")
     tokd, tabd = tokens.to(dev), table.to(dev)
     out, status, _ = check(
         "resolve", lambda: rk.resolve_stream(tokd, *k2d, tabd),
-        lambda: rk.resolve_stream_plain(tokens, *k2, table))
+        lambda: rk.resolve_stream_plain(tokens, *k2, table),
+        lambda w: nbytes(tokens, *k2, table, *w))
     assert out.numpy().tobytes() == data and not status[:, 2].any()
     for r in rows.values():
         assert r["max_abs_err"] == 0, rows
-    return rows, dict(units=int(cnt.sum()), tokens=int(rlens.sum()),
+    return rows, dict(units=n_units, tokens=int(rlens.sum()),
                       chunks=len(st.rlens))
 
 
-def chunk_stream(tokens, encpos: int) -> bytes:
+def nbytes(*ts) -> int:
+    """Bytes of the tensors among ``ts``."""
+    return sum(t.numel() * t.element_size() for t in ts if torch.is_tensor(t))
+
+
+def chunk_stream(tokens, encpos: int, rlen: int | None = None) -> bytes:
     """One block of one chunk holding ``tokens`` (crafted test streams),
-    entropy-coded with the port's own Huffman stage."""
-    from libzling_tpu.tables import HUFFMAN_MAX_LEN_1, HUFFMAN_MAX_LEN_2
+    entropy-coded with the port's own Huffman stage; its header declares
+    ``rlen`` tokens (default: all of them)."""
+    from libzling_tpu_torch.tables import HUFFMAN_MAX_LEN_1, HUFFMAN_MAX_LEN_2
     from libzling_tpu_torch.ops import huffman as hops
 
     sym, idx, i = [], [], 0
@@ -333,7 +471,8 @@ def chunk_stream(tokens, encpos: int) -> bytes:
     payload = hops.payload_from_words(words.numpy(), int(bits[0]), l1[0],
                                       l2[0])
     return (b"\x01" + encpos.to_bytes(4, "big")
-            + len(tokens).to_bytes(4, "big") + len(payload).to_bytes(4, "big")
+            + (len(tokens) if rlen is None else rlen).to_bytes(4, "big")
+            + len(payload).to_bytes(4, "big")
             + payload + b"\x00")
 
 
@@ -436,12 +575,16 @@ def probe_rows(checked, measured, launches):
                        cycles_per_iter=r["cycles_per_iter"], ghz=r["ghz"],
                        **plain.get(r["name"], {}))
                   for r in variants[row]]
+            # a probe step loads at least one 4-byte word; each launch
+            # writes its three 8-byte words
+            moved = sum(4 * v["n"] + 24 for v in vs)
             d = dict(name=row, route="cuda", source=mod.SOURCE,
                      replaces=replaces[0], launches=launches[row],
                      max_abs_err=checked[row]["max_abs_err"],
                      ms=sum(v["ms"] for v in vs),
                      plain_ms=sum(p["plain_ms"] for p in plain.values()),
-                     variants=vs)
+                     bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                     bound_by="bytes", library_ms=None, variants=vs)
             if replaces[1:]:
                 d["also_replaces"] = ", ".join(replaces[1:])
             out.append(d)
@@ -479,7 +622,7 @@ def main() -> int:
     t0 = phase("kernel==plain", t0, json.dumps(rows))
 
     # ---- 4. the main path at full size
-    from libzling_tpu.native import engine
+    from libzling_tpu_torch.native import engine
 
     sys.path.insert(0, os.path.join(REPO, "tools"))
     from make_corpus import make_corpus
@@ -549,16 +692,19 @@ def main() -> int:
     # ---- 5. corrupt streams through the CUDA paths
     decoders = (z.decode, lambda d: z.decode(d, fused=False),
                 lambda d: z.decode_groups(d, group_blocks=1))
-    for name, tokens, encpos in (("matchidx_zero", [65, 66, 258, 0], 6),
-                                 ("encpos_mismatch", [65, 66, 67], 9)):
+    corrupt = {name: s for name, s in crafted_streams().items()
+               if name != "head-byte match symbol"}
+    corrupt["matchidx_zero"] = chunk_stream([65, 66, 258, 0], 6)
+    corrupt["encpos_mismatch"] = chunk_stream([65, 66, 67], 9)
+    for name, bad in corrupt.items():
         for path, dec in zip(("fused", "split", "groups"), decoders):
             try:
-                dec(chunk_stream(tokens, encpos))
+                dec(bad)
             except ValueError:
                 continue
             raise AssertionError(f"corrupt stream {name} accepted ({path})")
     t0 = phase("corrupt", t0, "rejected by the fused, split and group "
-               "paths: matchidx_zero, encpos_mismatch")
+               "paths: " + ", ".join(corrupt))
 
     # ---- 6. the cost probes
     t = time.perf_counter()
@@ -590,13 +736,35 @@ def main() -> int:
                            "libzling_tpu/ops/entropy_kernel.py:190"),
         "resolve": ("resolve.cu", "libzling_tpu/ops/resolve_kernel.py:63"),
     }
-    # times at the main path's shapes; the error over both comparisons
+    # per unit, in ns and in SM cycles: the clock the long probes read
+    # (clock64() cycles over event time, median of the probes of >= 1 ms);
+    # K4 per unit of its longest block, whose walk sets its time
+    ghz = float(np.median([r["ghz"] for rows_m in measured.values()
+                           for r in rows_m if r.get("ok", True)
+                           and r["ms"] >= 1.0]))
+    k4, k4e4 = full["tokenize"], full["tokenize"]["e4"]
+    per_unit = {
+        "sm_ghz": ghz,
+        "tokenize e0": k4["ms"] * 1e6 / k4["walker_units"],
+        "tokenize e4": k4e4["ms"] * 1e6 / k4e4["walker_units"],
+        "decode_fused e0": full["decode_fused"]["ms"] * 1e6 / walked["units"],
+        "resolve e0 (a token)": full["resolve"]["ms"] * 1e6 / walked["tokens"],
+    }
+    print("[per unit] " + json.dumps({
+        k: v if k == "sm_ghz" else dict(ns=v, cycles=v * ghz)
+        for k, v in per_unit.items()}), flush=True)
+
+    # times at the main path's shapes; the error over both comparisons; the
+    # bound: the bytes each function must move over 3.35 TB/s (no single
+    # PyTorch call computes any of these functions: library_ms is null)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=csrc + info[k][0],
              replaces=info[k][1], launches=launches[k],
              max_abs_err=max(rows[k]["max_abs_err"],
                              full[k]["max_abs_err"]),
-             ms=full[k]["ms"], plain_ms=full[k]["plain_ms"])
+             ms=full[k]["ms"], plain_ms=full[k]["plain_ms"],
+             bound_ms=full[k]["bytes"] / HBM_BYTES_PER_S * 1e3,
+             bound_by="bytes", library_ms=None)
         for k in kernels] + probe_rows(checked, measured, probe_launches)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

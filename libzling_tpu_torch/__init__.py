@@ -3,8 +3,11 @@ kernels for the NVIDIA H100 (sm_90a).
 
 A port of ``libzling_tpu``'s on-device round trip (its ``backend="tpu"``):
 streams are byte-identical to the JAX package and to the native engine.
-The package imports torch and never jax; from ``libzling_tpu`` it uses only
-the host-only modules ``tables``, ``container`` and ``native.engine``.
+The package imports torch and never jax, and nothing of ``libzling_tpu``:
+it keeps its own copies of the format tables (``tables``), the container
+parser (``container``) and the native C++ engine (``native/``, built with
+g++ at first use), which gives the exact Huffman length tables and the
+canonical host codec the card's streams are checked against.
 
 Public API:
 

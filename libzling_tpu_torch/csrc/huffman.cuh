@@ -20,20 +20,25 @@ constexpr int kOrder = 1024;     // symbols by (length, id), per chunk
 constexpr int kLut2 = 256;       // len2 | matchidx bits << 8 | base << 16
 constexpr int kTier = 48;        // start[16], count[16], base[16]
 
-// Load chunk c's tables into shared memory: every thread of the CTA takes
-// part; the caller synchronises before reading them.
+// Load chunk c's tables into shared memory: threads tid, tid + nthreads,
+// ... of the CTA (by default all of them) take part; the caller
+// synchronises them before reading the tables.
 __device__ __forceinline__ void load_chunk_tables(
     int c, const int* __restrict__ meta, const int* __restrict__ order1,
     const int* __restrict__ lut1, const int* __restrict__ lut2, int* s_lut1,
-    int* s_order, int* s_lut2, int* s_tier) {
+    int* s_order, int* s_lut2, int* s_tier, int tid = -1, int nthreads = 0) {
+  if (tid < 0) {
+    tid = threadIdx.x;
+    nthreads = blockDim.x;
+  }
   const int* m = meta + static_cast<size_t>(c) * 1024;
-  for (int i = threadIdx.x; i < kLut1; i += blockDim.x)
+  for (int i = tid; i < kLut1; i += nthreads)
     s_lut1[i] = lut1[static_cast<size_t>(c) * kLut1 + i];
-  for (int i = threadIdx.x; i < kOrder; i += blockDim.x)
+  for (int i = tid; i < kOrder; i += nthreads)
     s_order[i] = order1[static_cast<size_t>(c) * kOrder + i];
-  for (int i = threadIdx.x; i < kLut2; i += blockDim.x)
+  for (int i = tid; i < kLut2; i += nthreads)
     s_lut2[i] = lut2[static_cast<size_t>(c) * 1024 + i];
-  for (int i = threadIdx.x; i < kTier; i += blockDim.x)
+  for (int i = tid; i < kTier; i += nthreads)
     s_tier[i] = m[128 * (1 + i / 16) + i % 16];
 }
 

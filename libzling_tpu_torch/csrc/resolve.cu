@@ -17,9 +17,10 @@
 // block before thread 0 reads it (0 means an unwritten slot).  Thread 0
 // walks the chunk's tokens from global memory and writes bytes straight
 // into the u8 output at the block's offset, through the resolve steps it
-// shares with K3 (rolz.cuh).  The TPU kernel's token slabs,
-// one-byte-per-word rows, flush bursts and literal fast loop are its
-// layout and scheduling and are not ported.
+// shares with K3 (rolz.cuh), telling them the next token so that a coming
+// match's ring slot is loaded as soon as its context is known.  The TPU
+// kernel's token slabs, one-byte-per-word rows, flush bursts and literal
+// fast loop are its layout and scheduling and are not ported.
 //
 // A block's first two bytes take one token each, whatever its value (the
 // low byte is the output), as the JAX split decoder does.  Rejections
@@ -94,19 +95,28 @@ resolve_kernel(const int* __restrict__ tokens,
                encposs[c]};
     int tpos = 0;
     bool bad = false;
+    // the token at n and its index word, for the resolver to load a coming
+    // match's ring slot ahead (-1: past the chunk)
+    auto peek = [&](int n, int& nm) {
+      if (n + 1 >= rlen) return -1;
+      nm = tk[n + 1];
+      return tk[n];
+    };
     while (tpos < rlen) {
       const int t = tk[tpos];
+      int nm = 0;
       if (r.opos <= 1) {  // the two raw head bytes of a block: one token each
-        if (!r.head_byte(t)) { bad = true; break; }
+        const int nt = peek(tpos + 1, nm);
+        if (!r.head_byte(t, nt, nm)) { bad = true; break; }
         ++tpos;
       } else if (t >= 258) {  // match: the next token is its ring index
-        if (tpos + 1 >= rlen || !r.match(t, tk[tpos + 1])) {
-          bad = true;
-          break;
-        }
+        if (tpos + 1 >= rlen) { bad = true; break; }
+        const int nt = peek(tpos + 2, nm);
+        if (!r.match(t, tk[tpos + 1], nt, nm)) { bad = true; break; }
         tpos += 2;
       } else {
-        if (!r.simple(t)) { bad = true; break; }
+        const int nt = peek(tpos + 1, nm);
+        if (!r.simple(t, nt, nm)) { bad = true; break; }
         ++tpos;
       }
     }

@@ -3,6 +3,15 @@
 // head bytes, sticky-MTF literals, word-MRU hits and ring matches, with
 // the format's rejections.  Each step checks before it writes, so a
 // corrupt chunk never writes past its block's encpos.
+//
+// The chain from one token to the next runs through the context byte: a
+// match's ring slot is read under the context its previous token left.  So
+// each step settles its context first -- a match takes its last three
+// bytes from the bytes it copies, loaded from where they already were --
+// and, when the caller says the next token is a match (nt, nmidx), loads
+// that match's ring slot at once (`ahead`), before its own stores: the
+// copy, the MTF swap, the word-MRU update.  The caller passes nt < 0 when
+// the next token is unknown or is no match.
 #pragma once
 
 #include "common.cuh"
@@ -11,11 +20,13 @@ namespace zlt {
 
 // Forward copy with the format's overlap semantics (out[opos+k] =
 // out[src+k], byte by byte).  Sources at least 8 bytes back are moved in
-// groups of 8 independent loads.
+// groups of 8 independent loads; a shorter period d is repeated from
+// registers, without reading back the bytes just stored.
 __device__ __forceinline__ void copy_match(uint8_t* o, int opos, int src,
                                            int mlen) {
+  const int d = opos - src;
   int k = 0;
-  if (opos - src >= 8) {
+  if (d >= 8) {
     for (; k + 8 <= mlen; k += 8) {
       uint8_t v[8];
 #pragma unroll
@@ -23,8 +34,17 @@ __device__ __forceinline__ void copy_match(uint8_t* o, int opos, int src,
 #pragma unroll
       for (int q = 0; q < 8; ++q) o[opos + k + q] = v[q];
     }
+    for (; k < mlen; ++k) o[opos + k] = o[src + k];
+    return;
   }
-  for (; k < mlen; ++k) o[opos + k] = o[src + k];
+  uint64_t pat = 0;
+#pragma unroll
+  for (int q = 0; q < 7; ++q)
+    if (q < d) pat |= static_cast<uint64_t>(o[src + q]) << (8 * q);
+  for (int j = 0; k < mlen; ++k) {
+    o[opos + k] = static_cast<uint8_t>(pat >> (8 * j));
+    j = j + 1 == d ? 0 : j + 1;
+  }
 }
 
 struct Resolver {
@@ -35,46 +55,90 @@ struct Resolver {
   uint8_t* mtf;        // [256][256] rank -> byte per context
   const int* nxt;      // MTF_NEXT: rank i swaps with rank nxt[i]
   int opos, l1, l2, encpos;
+  int pend_h = -1;     // the next match's ring slot, claimed by `ahead`
+  int pend_src = 0;    // and the position it holds
+
+  // The current token's context is final and its ring insert done: if the
+  // next token is a match (not a head byte), load its ring slot now.
+  __device__ __forceinline__ void ahead(int nt, int nmidx) {
+    if (nt >= 258 && opos > 1) {
+      pend_h = (head[l1] + 1) & (kRing - 1);
+      pend_src = ring[l1 * kRing + ((pend_h - nmidx) & (kRing - 1))];
+    }
+  }
 
   // A block's raw head byte: the token's low 8 bits.  False past encpos.
-  __device__ __forceinline__ bool head_byte(int t) {
+  __device__ __forceinline__ bool head_byte(int t, int nt, int nmidx) {
     if (opos + 1 > encpos) return false;
     const int b = t & 255;
     o[opos++] = static_cast<uint8_t>(b);
     l2 = l1;
     l1 = b;
+    ahead(nt, nmidx);
     return true;
   }
 
   // A match of symbol t (>= 258) from ring index midx of context l1.
   // False on midx == 0, an unwritten slot, src >= opos or a copy past
   // encpos.
-  __device__ __forceinline__ bool match(int t, int midx) {
+  __device__ __forceinline__ bool match(int t, int midx, int nt, int nmidx) {
     const int ctx = l1;
     int* rg = ring + ctx * kRing;
-    const int h = (head[ctx] + 1) & (kRing - 1);
+    int h, src;
+    if (pend_h >= 0) {  // loaded ahead by the previous token
+      h = pend_h;
+      src = pend_src;
+      pend_h = -1;
+    } else {
+      h = (head[ctx] + 1) & (kRing - 1);
+      src = rg[(h - midx) & (kRing - 1)];
+    }
     head[ctx] = h;
-    const int src = rg[(h - midx) & (kRing - 1)];
     rg[h] = opos;
     const int mlen = t - 258 + kMatchMin;
     if (midx == 0 || src == 0 || src >= opos || opos + mlen > encpos)
       return false;
-    copy_match(o, opos, src, mlen);
+    // the copy's first bytes (up to 16) and its last three, the next
+    // context, loaded at once from where they already are: output byte k
+    // of the copy is o[src + k mod d], d = opos - src
+    const int d = opos - src;
+    const int k3 = mlen - 3, k2 = mlen - 2, k1 = mlen - 1;
+    const int cu = o[src + (k3 < d ? k3 : k3 % d)];
+    const int b2 = o[src + (k2 < d ? k2 : k2 % d)];
+    const int b1 = o[src + (k1 < d ? k1 : k1 % d)];
+    const int first = min(mlen, 16);
+    uint8_t v[16];
+    if (d >= first) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < first) v[k] = o[src + k];
+    }
+    const int m0 = mru[cu * 2];
+    const int at = opos;
     opos += mlen;
-    const int cu = o[opos - 3];
-    l2 = o[opos - 2];
-    l1 = o[opos - 1];
-    const int wu = (l2 << 8) | l1;
-    if (mru[cu * 2] != wu) {
-      mru[cu * 2 + 1] = mru[cu * 2];
+    l2 = b2;
+    l1 = b1;
+    ahead(nt, nmidx);
+    if (d >= first) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < first) o[at + k] = v[k];
+      if (mlen > 16) copy_match(o, at + 16, src + 16, mlen - 16);
+    } else {
+      copy_match(o, at, src, mlen);
+    }
+    const int wu = (b2 << 8) | b1;
+    if (m0 != wu) {
+      mru[cu * 2 + 1] = m0;
       mru[cu * 2] = wu;
     }
     return true;
   }
 
   // A literal (t < 256: the sticky-MTF rank of its low 8 bits) or a
-  // word-MRU hit (256: newest, 257: second).  False past encpos.
-  __device__ __forceinline__ bool simple(int t) {
+  // word-MRU hit (256: newest, 257: second).  False past encpos.  Every
+  // shared-memory load is issued before the first store.
+  __device__ __forceinline__ bool simple(int t, int nt, int nmidx) {
     const int ctx = l1;
     if (opos + (t < 256 ? 1 : 2) > encpos) return false;
     const int h = (head[ctx] + 1) & (kRing - 1);
@@ -83,27 +147,32 @@ struct Resolver {
     if (t < 256) {  // rank -> byte, then swap the rank with MTF_NEXT's
       const int r = t & 255;
       uint8_t* row = mtf + ctx * 256;
-      const int lit = row[r];
-      const int j = nxt[r];
-      row[r] = row[j];
-      row[j] = static_cast<uint8_t>(lit);
+      const int lit = row[r], j = nxt[r];
+      const int prev = l2;
+      const int m0 = mru[prev * 2];
+      const int rj = row[j];
       o[opos++] = static_cast<uint8_t>(lit);
-      mru[l2 * 2 + 1] = mru[l2 * 2];
-      mru[l2 * 2] = (ctx << 8) | lit;
       l2 = ctx;
       l1 = lit;
+      ahead(nt, nmidx);
+      row[r] = static_cast<uint8_t>(rj);
+      row[j] = static_cast<uint8_t>(lit);
+      mru[prev * 2 + 1] = m0;
+      mru[prev * 2] = (ctx << 8) | lit;
     } else {
-      const int wv = mru[ctx * 2 + (t & 1)];
+      const int w0 = mru[ctx * 2], w1 = mru[ctx * 2 + 1];
+      const int wv = t & 1 ? w1 : w0;
       const int b0 = (wv >> 8) & 255, b1 = wv & 255;
       o[opos] = static_cast<uint8_t>(b0);
       o[opos + 1] = static_cast<uint8_t>(b1);
-      if (t == 257) {
-        mru[ctx * 2 + 1] = mru[ctx * 2];
-        mru[ctx * 2] = wv;
-      }
       opos += 2;
       l2 = b0;
       l1 = b1;
+      ahead(nt, nmidx);
+      if (t == 257) {
+        mru[ctx * 2 + 1] = w0;
+        mru[ctx * 2] = wv;
+      }
     }
     return true;
   }

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from libzling_tpu.tables import BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ
+from .tables import BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ
 from . import group_decode
 from .group_encode import encode_groups
 from .ops import decode_fused as fk

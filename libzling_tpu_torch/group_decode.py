@@ -29,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from libzling_tpu import container
+from . import container
 from .ops import entropy_kernel as ek
 from .ops import mtf as mops
 from .ops import resolve_kernel as rk

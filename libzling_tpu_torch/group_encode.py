@@ -30,11 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzling_tpu.tables import (
+from .container import HEADER
+from .tables import (
     BLOCK_SIZE_IN,
     BLOCK_SIZE_ROLZ,
-    HUFFMAN_CODES_1,
-    HUFFMAN_CODES_2,
     HUFFMAN_MAX_LEN_1,
     HUFFMAN_MAX_LEN_2,
     LEVEL_PARAMS,
@@ -46,7 +45,6 @@ from .ops import relabel_kernel as rlk
 from .ops import tokenize_kernel as tkk
 
 GROUP_BLOCKS = 8
-HEADER = (HUFFMAN_CODES_1 + HUFFMAN_CODES_2) // 2   # 273 B of length tables
 
 
 def _payload_bytes(bits: int) -> int:

@@ -8,19 +8,27 @@ feeds the ROLZ resolve state machine directly, with no token array.
 Source note (``csrc/decode_fused.cu``, with K1's reader
 ``csrc/huffman.cuh`` and K2's resolve steps ``csrc/rolz.cuh``):
   * replaces ``libzling_tpu/ops/decode_fused.py::_fused_kernel``;
-  * bound on this card: one dependent chain per token -- the resolve is
-    serial over the whole stream (each literal's context is the byte just
-    decoded, the MTF table crosses blocks), so the kernel runs on one
-    thread of one CTA and is bound by the latency of its loads (shared
-    memory for tables, L2 for the ring and match sources), not by
-    bandwidth;
-  * design: the chunk loop runs inside the CTA where the TPU ran a
-    sequential grid.  The MTF table (u8 64 KB), the chunk's Huffman tables
-    and the word-MRU live in dynamic shared memory; the ring ([256, 4096]
-    positions, 4 MB) lives in global memory and is cleared by the whole CTA
-    at each new block; all 256 threads load each chunk's tables between
-    ``__syncthreads()``, then thread 0 walks the chunk.  Output bytes go
-    straight into a u8 tensor at the block's offset.
+  * bound on this card: one dependent chain per token, not bandwidth (the
+    payload and tables in, the bytes out: ~45 MB at 32 MiB, ~14 us at
+    3.35 TB/s) -- the resolve is serial over the whole stream (each
+    literal's context is the byte just decoded, the MTF table crosses
+    blocks), and a match's ring slot is read under the context its
+    previous token left: an L2 load (~300 cycles) on the chain, then its
+    source bytes;
+  * design: one CTA of two warps for the stream, no token array in global
+    memory.  A producer warp loads each chunk's tables into shared memory
+    and its lane 0 runs K1's reader ahead of the resolver, with the fused
+    decoder's reading rules (no index bits for a block's two raw head
+    bytes, a match without room for its index, a read past ``n_words``
+    and an invalid code end the chunk), into a ring of 8,192 entries in
+    shared memory.  The resolver warp clears the ring of token-start
+    positions ([256, 4096], 4 MB, global memory) at each new block; its
+    lane 0 runs the resolve steps one entry ahead: a match's last three
+    bytes (the next context) are read from the copy's source, and the next
+    match's ring slot is loaded as soon as that context is known, before
+    the copy's stores and the MTF and word-MRU updates.  The MTF table (u8
+    64 KB) and the word-MRU live in shared memory.  Output bytes go straight
+    into a u8 tensor at the block's offset.
 
 Status per chunk is (opos, tokens, bad, opos at chunk start).  A chunk is
 bad on an invalid code, a read past ``n_words``, a match without room for

@@ -27,7 +27,7 @@ import functools
 import numpy as np
 import torch
 
-from libzling_tpu.tables import (
+from ..tables import (
     HUFFMAN_CODES_1,
     HUFFMAN_MAX_LEN_1,
     HUFFMAN_MAX_LEN_2,

@@ -12,19 +12,17 @@ disjoint bit ranges, so ``index_add_`` gives the same result as an OR, in
 any order.
 
 The exact code-length tables stay on the host: ``exact_length_tables``
-binds the native engine's ``zlt_length_tables`` (the reference heap
-tie-break) with the same argtypes as the JAX package, so both packages
-share one tie-break.
+calls ``zlt_length_tables`` (the reference heap tie-break) of the port's
+own copy of the native engine (``native/engine.py``), the same C++ as the
+JAX package's, so both packages break ties alike.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from libzling_tpu.tables import (
+from ..tables import (
     HUFFMAN_CODES_1,
     HUFFMAN_CODES_2,
     MATCHIDX_BASE,
@@ -37,20 +35,9 @@ _M32 = 0xFFFFFFFF
 
 def exact_length_tables(freqs: np.ndarray, max_codelen: int) -> np.ndarray:
     """freqs [C, n] -> code lengths [C, n] uint32, reference tie-breaking."""
-    from libzling_tpu.native.engine import _lib
+    from ..native import engine
 
-    dll = _lib()
-    dll.zlt_length_tables.restype = None
-    dll.zlt_length_tables.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    freqs = np.ascontiguousarray(freqs, dtype=np.uint32)
-    c, n = freqs.shape
-    out = np.zeros((c, n), dtype=np.uint32)
-    dll.zlt_length_tables(freqs.ctypes.data, c, n, max_codelen,
-                          out.ctypes.data)
-    return out
+    return engine.length_tables(freqs, max_codelen)
 
 
 def _table(a: np.ndarray, device) -> torch.Tensor:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzling_tpu.tables import MTF_INIT, MTF_NEXT
+from ..tables import MTF_INIT, MTF_NEXT
 
 # the resolve/fused kernels keep 256 contexts + 1 dummy row, one i32 a byte
 FUSED_WORDS = 257 * 256

@@ -19,7 +19,9 @@ Source note (``csrc/resolve.cu``):
     word-MRU live in dynamic shared memory; the ring (4 MB) in global
     memory, cleared by the whole CTA at each new block; thread 0 reads the
     tokens from global memory and writes bytes straight into a u8 tensor at
-    the block's offset.
+    the block's offset.  It shares K3's match step (``csrc/rolz.cuh``): the
+    next context comes from the copy's source bytes, and the next match's
+    ring slot is loaded as soon as that context is known.
 
 Not ported, because it is TPU layout or scheduling: the one-byte-per-int32
 output with its XLA repack, the ``FLUSH_ROWS`` row bases, the token slabs
@@ -43,7 +45,7 @@ import functools
 
 import torch
 
-from libzling_tpu.tables import MATCH_MIN_LEN
+from ..tables import MATCH_MIN_LEN
 from . import mtf as mops
 
 RING = 4096

@@ -18,17 +18,33 @@ one byte, so block b's units fit in ``block_len[b]`` slots from
 
 Source note (``csrc/tokenize.cu``):
   * replaces ``libzling_tpu/ops/tokenize_kernel.py::_tokenize_kernel``;
-  * bound on this card: the latency of dependent loads -- every match
-    attempt reads a hash head, then walks chain nodes (slot word, suffix
-    link, candidate bytes), each load depending on the one before, into
-    ~10 MB of bucket state per block that lives in global memory (L2);
-  * design: blocks are independent (the buckets reset per block), so one
-    CTA per block and all blocks of a launch run in parallel; thread 0
-    walks the block.  The bucket state (hash heads u16 [256, 8192],
-    suffix u16 [256, 4096], offset|check u32 [256, 4096]) is allocated and
-    initialised by the wrapper; ring heads and the word-MRU (reset per
-    chunk) are in shared memory.  Search depth is a runtime value, so
-    levels 5 and 6 (depth 48 and 128) are exact.
+  * bound on this card: the latency of dependent loads.  The bytes moved
+    (the block in, units and ``upos`` out: ~93 MB at 32 MiB, ~28 us at
+    3.35 TB/s) are nothing; the parse is serial within a block, and every
+    unit reads a hash head, then walks chain nodes (offset, suffix link,
+    candidate bytes) and the lazy probes' chains, each load depending on
+    the one before, in ~10.5 MB of bucket state per block that does not
+    stay in L2 beside the input (the cost probes of ``probes/`` on an H100:
+    ~300 cycles an L2 hit, ~675 an HBM load, 920 for three dependent loads
+    at K4's footprint);
+  * design: one CTA of one warp per block, all blocks of a launch in
+    parallel.  The warp runs the parse converged, every lane holding the
+    same walk (a load of one address by every lane is one broadcast load);
+    lane 0 alone stores to the bucket state, the word-MRU and the outputs,
+    and a ``__syncwarp()`` separates every lane's loads of a word from
+    lane 0's store to it, so the result does not depend on timing.  The
+    other lanes take latency off the chain: a node's offset and suffix
+    link load together, the next node's before the candidate's bytes;
+    lanes 1 and 2 walk the lazy probes' chains (pos+1, pos+2) beside the
+    main walk, and the whole warp tests their candidates at once after it;
+    a candidate's common length is compared 32 bytes a step by
+    ``__ballot_sync``.  The bucket state (hash heads
+    u16 [256, 8192], suffix u16 [256, 4096], offset|check u32 [256, 4096])
+    is allocated and initialised by the wrapper; ring heads, the word-MRU
+    (reset per chunk) and the lazy candidates (``MAX_LAZY`` a probe) are
+    in shared memory; a chunk whose lazy depth exceeds ``MAX_LAZY`` ends
+    its block with err set.  Search depth is a runtime value, so levels 5
+    and 6 (depth 48 and 128) are exact.
 """
 
 from __future__ import annotations
@@ -36,7 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from libzling_tpu.tables import (
+from ..tables import (
     LEVEL_PARAMS,
     MATCH_MAX_LEN,
     MATCH_MIN_LEN,
@@ -47,6 +63,8 @@ from libzling_tpu.tables import (
 LEVEL_TABLE = np.asarray([LEVEL_PARAMS[l] for l in sorted(LEVEL_PARAMS)],
                          np.int32)
 RING, HASH, NIL = 4096, 8192, 0xFFFF
+MAX_LAZY = 16            # lazy candidates the kernel keeps per probe
+assert LEVEL_TABLE[:, 1:].max() <= MAX_LAZY
 
 
 def level_params(levels, device) -> torch.Tensor:
@@ -64,7 +82,8 @@ def tokenize(buf, block_off, block_len, unit_off, params, max_tokens: int,
     [B, max_chunks, 3] (depth, lazy1, lazy2 per chunk).  Returns (units,
     upos i32 [n_units], chunk_stat i32 [B, max_chunks, 3] = (nunits, ntoks,
     encpos), block_stat i32 [B, 2] = (n_chunks, err)); err is set when a
-    block is not fully tokenized within max_chunks chunks.
+    block is not fully tokenized within max_chunks chunks.  Lazy depths
+    above ``MAX_LAZY`` raise for CPU ``params`` and set err on the card.
 
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     """
@@ -79,6 +98,9 @@ def tokenize(buf, block_off, block_len, unit_off, params, max_tokens: int,
     B, max_chunks = params.shape[0], params.shape[1]
     if buf.dtype != torch.uint8 or not buf.is_contiguous():
         raise ValueError("tokenize: buf must be contiguous u8")
+    if (params.device.type == "cpu" and params.numel()
+            and int(params[..., 1:].max()) > MAX_LAZY):
+        raise ValueError(f"tokenize: lazy depth above {MAX_LAZY}")
     block_off = block_off.to(dev, torch.int64).contiguous()
     unit_off = unit_off.to(dev, torch.int64).contiguous()
     block_len = block_len.to(dev, torch.int32).contiguous()

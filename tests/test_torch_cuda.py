@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as smoke
 import libzling_tpu_torch as zt
 from libzling_tpu import spec
 from libzling_tpu.tables import SENTINEL_LEN
@@ -230,6 +231,67 @@ def test_group_loop_does_not_wait_for_the_card(cuda):
         torch.cuda.set_sync_debug_mode(0)
     assert len(pending) == len(s.block_base) - 1
     assert b"".join(p[2].cpu().numpy().tobytes() for p in pending) == data
+
+
+@pytest.mark.parametrize("name", sorted(smoke.design_cases()))
+def test_design_cases_equal_plain(cuda, name):
+    # inputs aimed at K4's warp walker and K3's producer / resolver: K4, K3
+    # and K1 + K2 equal their plain versions; the stream equals spec's
+    data, levels, geom = smoke.design_cases()[name]
+    for level in levels:
+        buf, args = smoke.tokenize_args(data, level, geom)
+        want = ttk.tokenize_plain(buf, *args)
+        got = ttk.tokenize(buf.to(cuda), *args)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        stream = zt.encode(data, level, device=cuda, **geom)
+        assert stream == spec.encode(data, level, **geom)
+        dargs, size, _ = tdevice.decode_args(stream, "cpu")
+        want = tfk.fused_decode_plain(*dargs, out_size=size)
+        got = tfk.fused_decode(*_on(dargs, cuda), out_size=size)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        s = tgd.parse(stream)
+        _split_equal(cuda, s, 0, len(s.rlens), tmtf.initial_table("cpu"))
+        assert zt.decode(stream, device=cuda) == data
+
+
+def test_tokenize_mixed_schedule_equal_plain(cuda):
+    # the warp walker with the level (and so the lazy lanes' work) changing
+    # between chunks of a block
+    for name in ("one-byte run", "e6 repetitive text"):
+        data, levels, geom = smoke.design_cases()[name]
+        buf, args = smoke.tokenize_args(data, levels[-1], geom, mixed=True)
+        want = ttk.tokenize_plain(buf, *args)
+        got = ttk.tokenize(buf.to(cuda), *args)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def test_tokenize_lazy_depth_above_max(cuda):
+    # host params are refused; params already on the card end the block
+    # (err) at the chunk instead of overrunning the candidates' room
+    buf, args = _tokenize_args(_data(), 4)
+    deep = args[3].clone()
+    deep[..., 1] = ttk.MAX_LAZY + 1
+    bad = (*args[:3], deep, *args[4:])
+    with pytest.raises(ValueError):
+        ttk.tokenize(buf.to(cuda), *bad)
+    _, _, _, bstat = ttk.tokenize(buf.to(cuda), *_on(bad, cuda))
+    assert bstat.tolist() == [[0, 1]] * len(bstat)
+
+
+@pytest.mark.parametrize("name", [
+    "head-byte match symbol", "match without its index", "index 0 mid-chunk",
+    "unwritten slot mid-chunk"])
+def test_fused_decode_crafted_chunks_equal_plain(cuda, name):
+    # K3's producer reads as the fused decoder does, and a corrupt token the
+    # producer has decoded past stops the chunk where the plain version does
+    args, size, _ = tdevice.decode_args(smoke.crafted_streams()[name], "cpu")
+    want = tfk.fused_decode_plain(*args, out_size=size)
+    got = tfk.fused_decode(*_on(args, cuda), out_size=size)
+    assert torch.equal(got[1].cpu(), want[1])
+    assert torch.equal(got[0].cpu(), want[0])
 
 
 def _probe_pairs(name, dev, n):
