@@ -18,7 +18,13 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      259, copies overlapping by 1..20 bytes, 40-token chunks) through K4,
      K3, K1 and K2, and K3 on ``crafted_streams`` (a head-byte match symbol,
      a match without its index, corrupt tokens thousands of tokens into a
-     chunk), with each one's time beside the plain one's;
+     chunk), with each one's time beside the plain one's; then inputs aimed
+     at K2's and K5's designs: K2 on ``resolve_cases`` (matches W - 1, W
+     and W + 1 bytes back, W its output window; chunk and block edges;
+     overlapping copies; chunks about its token ring's length), each also
+     with a corrupt chunk, and K5 on ``relabel_cases`` (a context across a
+     tile edge, a tile of literals only, one without any, short ranges
+     with gaps), each from the initial and from a carried MTF state;
   4. the main path at full size: a 32 MiB corpus (1 MiB of random bytes
      spliced into the middle, so the adaptive level drop fires) encoded at
      e0 through ``libzling_tpu_torch.encode`` must equal the port's own
@@ -45,8 +51,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      and only the shared-memory launch one byte past the card's opt-in
      limit may be refused (and must be).
 
-A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K2 per token)
-in ns and in SM cycles at the clock the long probes read.  The
+A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K2 per token,
+K5 per literal of its busiest context) in ns and in SM cycles at the clock
+the long probes read.  The
 second-to-last line is a JSON object with each kernel's launches in the
 main path, its largest error over both comparisons, its time and its plain
 version's at the main path's e0 shapes, and its bound (the bytes it must
@@ -196,6 +203,212 @@ def crafted_streams() -> dict:
     }
 
 
+class TokenWriter:
+    """Writes a stream's tokens by running the plain resolver on them, so
+    that each match can be aimed at a chosen source distance.  ``chunks``
+    collects (block, tokens, encpos)."""
+
+    def __init__(self, size: int, seed: int):
+        from libzling_tpu_torch.ops import mtf as mops
+        from libzling_tpu_torch.ops import resolve_kernel as rk
+
+        self.rng = np.random.default_rng(seed)
+        self.out = bytearray(size)
+        self.r = rk.Resolver(self.out, mops.initial_table("cpu"),
+                             mops.mtf_next("cpu").tolist())
+        self.chunks, self.base, self.block, self.toks = [], 0, -1, None
+
+    def chunk(self, new_block: bool = False):
+        """Close the open chunk and open the next (a new block's two raw
+        head bytes included)."""
+        if self.toks:
+            self.chunks.append((self.block, self.toks, self.r.opos))
+        if new_block:
+            self.base += self.r.opos if self.block >= 0 else 0
+            self.block += 1
+        self.r.start_chunk(self.base, int(new_block), 1 << 30)
+        self.toks = []
+        if new_block:
+            for b in self.rng.integers(0, 256, 2):
+                self.toks.append(int(b))
+                assert self.r.head_byte(int(b))
+
+    def literals(self, n: int):
+        """n literals of random bytes (each its byte's rank in its context)."""
+        for b in self.rng.integers(0, 256, n).tolist():
+            self.literal(b)
+
+    def literal(self, b: int):
+        ctx = self.r.l1
+        rank = self.r.mtf.index(b, ctx * 256, ctx * 256 + 256) - ctx * 256
+        self.toks.append(rank)
+        assert self.r.simple(rank)
+
+    def match(self, d: int, mlen: int):
+        """A literal, then a match of mlen bytes from d back: the literal
+        repeats the byte before the source, so that the match's context
+        ring holds the source (a token start)."""
+        from libzling_tpu_torch.ops.resolve_kernel import RING
+
+        r, q = self.r, self.r.opos
+        self.literal(self.out[self.base + q - d])
+        ctx, src = r.l1, q + 1 - d
+        row = r.ring[ctx * RING:(ctx + 1) * RING]
+        midx = ((r.head[ctx] + 1) - row.index(src)) & (RING - 1)
+        self.toks += [258 + mlen - 4, midx]
+        assert r.match(258 + mlen - 4, midx)
+
+    def cases(self):
+        """Close the stream: (chunks, block sizes)."""
+        self.chunk()
+        sizes = [0] * (self.block + 1)
+        for b, _, encpos in self.chunks:
+            sizes[b] = encpos
+        return self.chunks, sizes
+
+
+def resolve_cases() -> dict:
+    """Token streams aimed at K2's design: name -> (chunks, block sizes),
+    chunks as (block, tokens, encpos).  Matches whose source lies W - 1, W
+    and W + 1 bytes back (W: K2's output window) and further, in one chunk
+    longer than the token ring; the same with chunk edges inside the block
+    (the window carries over); copies that overlap themselves inside the
+    window; a block edge (the window is not reset); chunks of about the
+    token ring's length."""
+    from libzling_tpu_torch.ops.resolve_kernel import TOKEN_RING, WINDOW
+
+    def window_edges(split: bool):
+        w = TokenWriter(WINDOW + 8000, seed=31)
+        w.chunk(new_block=True)
+        w.literals(WINDOW + 2000)
+        for k, (d, mlen) in enumerate((
+                (WINDOW - 1, 20), (WINDOW, 259), (WINDOW + 1, 5),
+                (WINDOW + 1500, 33), (WINDOW, 4), (40, 70))):
+            if split and k < 2:
+                w.chunk()
+            w.literals(min(d, 50))
+            w.match(d, mlen)
+        return w.cases()
+
+    def overlaps():
+        w = TokenWriter(20000, seed=32)
+        w.chunk(new_block=True)
+        w.literals(2000)
+        for d, mlen in [(d, 3 * d + 10) for d in range(1, 21)] + [
+                (3, 259), (17, 259)]:
+            w.literals(d)
+            w.match(d, mlen)
+        return w.cases()
+
+    def block_edge():
+        w = TokenWriter(40000, seed=33)
+        for _ in range(3):
+            w.chunk(new_block=True)
+            w.literals(5000)
+            for d in (7, 300, 4999):
+                w.match(d, 24)
+        return w.cases()
+
+    def ring_sized():
+        w = TokenWriter(40000, seed=34)
+        w.chunk(new_block=True)
+        for n in (TOKEN_RING - 1, TOKEN_RING, TOKEN_RING + 1, 1, 5000):
+            if n > 8:
+                w.literals(n - 3 - len(w.toks))
+                w.match(9, 12)
+            else:
+                w.literals(n - len(w.toks))
+            assert len(w.toks) == n
+            w.chunk()
+        return w.cases()
+
+    return {
+        "window edges, one chunk": window_edges(False),
+        "window edges, chunk edges in the block": window_edges(True),
+        "overlapping copies in the window": overlaps(),
+        "block edges": block_edge(),
+        "chunks about the token ring's length": ring_sized(),
+    }
+
+
+def resolve_args(chunks, sizes, pad: int = 1):
+    """K2's inputs for ``chunks`` (``resolve_cases``), ``pad`` unused tokens
+    before each chunk's tokens (so the chunks start at every alignment):
+    (tokens, tok_off, rlens, encpos, new_block, out_base, out_size)."""
+    base = np.cumsum([0] + list(sizes))
+    toks, offs = [], []
+    for _, t, _ in chunks:
+        toks += [999999] * pad
+        offs.append(len(toks))
+        toks += t
+    blocks = [b for b, _, _ in chunks]
+    new_block = [int(k == 0 or b != blocks[k - 1])
+                 for k, b in enumerate(blocks)]
+    as_t = torch.as_tensor
+    return (as_t(np.asarray(toks, np.int32)), as_t(np.asarray(offs, np.int64)),
+            as_t(np.asarray([len(t) for _, t, _ in chunks], np.int32)),
+            as_t(np.asarray([e for _, _, e in chunks], np.int32)),
+            as_t(np.asarray(new_block, np.int32)),
+            as_t(base[blocks].astype(np.int64)), int(base[-1]))
+
+
+def corrupt_chunk(chunks):
+    """``chunks`` with two literal tokens near the middle of its middle
+    chunk replaced by a match of index 0: that chunk is bad, and the rest
+    are not decoded."""
+    c = len(chunks) // 2
+    b, toks, encpos = chunks[c]
+    k = 0
+    while k < len(toks) // 2 or max(toks[k:k + 2]) >= 256:
+        k += 2 if toks[k] >= 258 else 1
+    bad = (b, toks[:k] + [258, 0] + toks[k + 2:], encpos)
+    return chunks[:c] + [bad] + chunks[c + 1:]
+
+
+def relabel_cases() -> dict:
+    """Units aimed at K5's tiles: name -> (units i32 [U], unit_off i64,
+    unit_cnt i32).  Units are random (literal, MRU hit, match, head byte)
+    words around the cases: a context whose literals straddle a tile
+    edge, a tile of literals only, a tile without any, ranges shorter than
+    a tile (and an empty one) with gaps between them, one context holding
+    every literal."""
+    from libzling_tpu_torch.ops.relabel_kernel import TILE
+
+    rng = np.random.default_rng(41)
+
+    def words(n, kinds=(0, 1, 1, 1, 2, 3), ctxs=None):
+        kind = rng.choice(kinds, n)
+        ctx = rng.integers(0, 256, n) if ctxs is None else np.full(n, ctxs)
+        lit = rng.integers(0, 256, n) | (1 << 10) | (ctx << 14)
+        match = rng.integers(258, 514, n) | (3 << 10) \
+            | (rng.integers(1, 4096, n) << 14)
+        other = rng.integers(0, 258, n) | (kind << 10)
+        return np.where(kind == 1, lit, np.where(kind == 3, match, other)) \
+            .astype(np.int32)
+
+    def one_range(u):
+        return (torch.as_tensor(u), torch.tensor([0], dtype=torch.int64),
+                torch.tensor([len(u)], dtype=torch.int32))
+
+    straddle = words(2 * TILE + 100)
+    straddle[TILE - 40:TILE + 40] = words(80, (1,), 7)
+    only = np.concatenate([words(TILE, (1,)), words(500)])
+    none = np.concatenate([words(TILE), words(TILE, (0, 2, 3)), words(77)])
+    lens = [100, TILE + 3, 1, 0, 2 * TILE]
+    offs = np.cumsum([5] + [n + 9 for n in lens])[:-1]
+    return {
+        "a context across a tile edge": one_range(straddle),
+        "a tile of literals only": one_range(only),
+        "a tile without literals": one_range(none),
+        "ranges shorter than a tile, gaps between": (
+            torch.as_tensor(words(int(offs[-1] + lens[-1] + 9))),
+            torch.as_tensor(offs.astype(np.int64)),
+            torch.as_tensor(np.asarray(lens, np.int32))),
+        "one context holds every literal": one_range(
+            words(TILE + 1000, ctxs=200)),
+    }
+
+
 def tokenize_args(data: bytes, level: int, geom: dict, mixed: bool = False):
     """K4's inputs for ``data`` cut in blocks of ``geom``: (buf, the rest
     of ``tokenize``'s arguments); ``mixed`` puts level 0 in every block's
@@ -255,6 +468,45 @@ def check_designs(dev, z, row):
         dargs_d = on(dargs, dev)
         timed("decode_fused", lambda: fk.fused_decode(*dargs_d, out_size=size),
               lambda: fk.fused_decode_plain(*dargs, out_size=size))
+
+
+def check_edges(dev, row):
+    """Phase 3c: K2 on ``resolve_cases`` (each also with a corrupt chunk)
+    and K5 on ``relabel_cases`` against their plain versions, each from the
+    initial MTF state and again from the first call's exit state."""
+    from libzling_tpu_torch.ops import mtf as mops
+    from libzling_tpu_torch.ops import relabel_kernel as rlk
+    from libzling_tpu_torch.ops import resolve_kernel as rk
+
+    def twice(name, kernel, plain, state):
+        """The plain version's first result."""
+        for k in range(2):
+            got = kernel(state.to(dev))
+            t = time.perf_counter()
+            want = plain(state)
+            ms = (time.perf_counter() - t) * 1e3
+            row(name, max_abs_err(zip(got, want)),
+                cuda_ms(lambda: kernel(state.to(dev)), 1), ms)
+            first = want if k == 0 else first
+            state = want[-1]
+        return first
+
+    for chunks, sizes in resolve_cases().values():
+        for cs in (chunks, corrupt_chunk(chunks)):
+            args = resolve_args(cs, sizes)
+            argsd = on(args, dev)
+            first = twice("resolve",
+                          lambda tab: rk.resolve_stream(*argsd, tab),
+                          lambda tab: rk.resolve_stream_plain(*args, tab),
+                          mops.initial_table("cpu"))
+            # the tokens were written for the initial table
+            assert bool(first[1][:, 2].any()) == (cs is not chunks)
+    nxt = mops.mtf_next("cpu")
+    for rargs in relabel_cases().values():
+        rargs_d = on(rargs, dev)
+        twice("relabel", lambda st: rlk.relabel(*rargs_d, st, nxt.to(dev)),
+              lambda st: rlk.relabel_plain(*rargs, st, nxt),
+              mops.initial_state("cpu"))
 
 
 def check_kernels(dev, z):
@@ -330,6 +582,7 @@ def check_kernels(dev, z):
     st = gd.parse(chunk_stream([258, 5, 65, 66], 4))
     assert check_split(dev, st, [(0, 1)], row) == b"\x02\x056L"
     check_designs(dev, z, row)
+    check_edges(dev, row)
     for r in rows.values():
         assert r["max_abs_err"] == 0, rows
     return rows
@@ -411,6 +664,13 @@ def check_full_size(data: bytes, stream: bytes, dev):
     check("relabel", lambda: rlk.relabel(*rargs_d),
           lambda: rlk.relabel_plain(*rargs),
           lambda w: nbytes(*rargs[1:], w[1]) + 8 * n_units)
+    # K5 walks the contexts side by side: its time is its busiest context's
+    # chain of literals
+    valid = torch.cat([units[o:o + n] for o, n in zip(offs.tolist(),
+                                                      cnt.tolist())])
+    lits = (valid >> 14)[(valid >> 10) & 3 == 1] & 255
+    rows["relabel"].update(literals=int(lits.numel()),
+                           busiest=int(torch.bincount(lits).max()))
 
     dargs, size, rlens = zdev.decode_args(stream, "cpu")
     dargs_d = [a.to(dev) for a in dargs]
@@ -749,6 +1009,8 @@ def main() -> int:
         "tokenize e4": k4e4["ms"] * 1e6 / k4e4["walker_units"],
         "decode_fused e0": full["decode_fused"]["ms"] * 1e6 / walked["units"],
         "resolve e0 (a token)": full["resolve"]["ms"] * 1e6 / walked["tokens"],
+        "relabel e0 (a literal of the busiest context)":
+            full["relabel"]["ms"] * 1e6 / full["relabel"]["busiest"],
     }
     print("[per unit] " + json.dumps({
         k: v if k == "sm_ghz" else dict(ns=v, cycles=v * ghz)

@@ -12,42 +12,65 @@
 // that match's ring slot at once (`ahead`), before its own stores: the
 // copy, the MTF swap, the word-MRU update.  The caller passes nt < 0 when
 // the next token is unknown or is no match.
+//
+// The output window (kWinLog > 0: K2): every byte of the block's output
+// goes to a circular window of 1 << kWinLog bytes in shared memory, at slot
+// (position + wofs) mod the window's size (the first kMirror slots also
+// past its end), and to nowhere else: the caller moves the window to the
+// output by bulk copies, so that a source further back than the window is
+// in the output by the time it is read.  A match whose source lies at most
+// that far back (d = opos - src <= size) reads its bytes in the window.
+// The window needs no reset: positions count from the block's start and a
+// source lies in the block before opos, so d <= size means that its slot
+// still holds that byte.  K3 runs without it (`Resolver`).
 #pragma once
 
 #include "common.cuh"
 
 namespace zlt {
 
-// Forward copy with the format's overlap semantics (out[opos+k] =
-// out[src+k], byte by byte).  Sources at least 8 bytes back are moved in
-// groups of 8 independent loads; a shorter period d is repeated from
-// registers, without reading back the bytes just stored.
-__device__ __forceinline__ void copy_match(uint8_t* o, int opos, int src,
-                                           int mlen) {
-  const int d = opos - src;
+// Forward copy with the format's overlap semantics (dp[k] = sp[k], byte by
+// byte, where sp == dp - d when the two overlap).  Sources at least 8
+// bytes back are moved in groups of 8 independent loads; a shorter period
+// d is repeated from registers, without reading back the bytes just
+// stored.
+__device__ __forceinline__ void copy_from(uint8_t* dp, const uint8_t* sp,
+                                          int d, int n) {
   int k = 0;
   if (d >= 8) {
-    for (; k + 8 <= mlen; k += 8) {
+    for (; k + 8 <= n; k += 8) {
       uint8_t v[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) v[q] = o[src + k + q];
+      for (int q = 0; q < 8; ++q) v[q] = sp[k + q];
 #pragma unroll
-      for (int q = 0; q < 8; ++q) o[opos + k + q] = v[q];
+      for (int q = 0; q < 8; ++q) dp[k + q] = v[q];
     }
-    for (; k < mlen; ++k) o[opos + k] = o[src + k];
+    for (; k < n; ++k) dp[k] = sp[k];
     return;
   }
   uint64_t pat = 0;
 #pragma unroll
   for (int q = 0; q < 7; ++q)
-    if (q < d) pat |= static_cast<uint64_t>(o[src + q]) << (8 * q);
-  for (int j = 0; k < mlen; ++k) {
-    o[opos + k] = static_cast<uint8_t>(pat >> (8 * j));
+    if (q < d) pat |= static_cast<uint64_t>(sp[q]) << (8 * q);
+  for (int j = 0; k < n; ++k) {
+    dp[k] = static_cast<uint8_t>(pat >> (8 * j));
     j = j + 1 == d ? 0 : j + 1;
   }
 }
 
-struct Resolver {
+// out[opos + k] = out[src + k] for k < mlen
+__device__ __forceinline__ void copy_match(uint8_t* o, int opos, int src,
+                                           int mlen) {
+  copy_from(o + opos, o + src, opos - src, mlen);
+}
+
+template <int kWinLog>
+struct ResolverT {
+  static constexpr int kWin = kWinLog > 0 ? 1 << kWinLog : 0;
+  // the window's first slots again past its end, so that a match's bytes
+  // (at most 259) lie at consecutive addresses wherever it starts
+  static constexpr int kMirror = 272;
+
   uint8_t* o;          // the block's output bytes
   int* ring;           // [256][kRing] token-start positions, 0 = unwritten
   int* head;           // [256] ring heads
@@ -57,6 +80,45 @@ struct Resolver {
   int opos, l1, l2, encpos;
   int pend_h = -1;     // the next match's ring slot, claimed by `ahead`
   int pend_src = 0;    // and the position it holds
+  uint8_t* win = nullptr;  // [kWin + kMirror] the latest output bytes
+  int wofs = 0;            // position p's slot: (p + wofs) mod kWin
+
+  // Output byte p := b: its window slot and that slot's mirror, or the
+  // output without the window.
+  __device__ __forceinline__ void put(int p, int b) {
+    if constexpr (kWin == 0) {
+      o[p] = static_cast<uint8_t>(b);
+    } else {
+      const int s = (p + wofs) & (kWin - 1);
+      win[s] = static_cast<uint8_t>(b);
+      if (s < kMirror) win[s + kWin] = static_cast<uint8_t>(b);
+    }
+  }
+
+  // A match's mlen bytes from sp[] to position at; v[] holds the first
+  // ones when d >= first.  In the window straight through when its slots
+  // neither wrap nor reach the mirrored head, else byte by byte.
+  __device__ __forceinline__ void store(int at, const uint8_t* sp, int d,
+                                        int mlen, int first,
+                                        const uint8_t* v) {
+    uint8_t* dp = o + at;
+    if constexpr (kWin > 0) {
+      const int s = (at + wofs) & (kWin - 1);
+      if (s < kMirror || s + mlen > kWin) {
+        for (int k = 0; k < mlen; ++k) put(at + k, sp[k]);
+        return;
+      }
+      dp = win + s;
+    }
+    if (d >= first) {
+#pragma unroll
+      for (int k = 0; k < 16; ++k)
+        if (k < first) dp[k] = v[k];
+      if (mlen > 16) copy_from(dp + 16, sp + 16, d, mlen - 16);
+    } else {
+      copy_from(dp, sp, d, mlen);
+    }
+  }
 
   // The current token's context is final and its ring insert done: if the
   // next token is a match (not a head byte), load its ring slot now.
@@ -71,7 +133,7 @@ struct Resolver {
   __device__ __forceinline__ bool head_byte(int t, int nt, int nmidx) {
     if (opos + 1 > encpos) return false;
     const int b = t & 255;
-    o[opos++] = static_cast<uint8_t>(b);
+    put(opos++, b);
     l2 = l1;
     l1 = b;
     ahead(nt, nmidx);
@@ -100,18 +162,23 @@ struct Resolver {
       return false;
     // the copy's first bytes (up to 16) and its last three, the next
     // context, loaded at once from where they already are: output byte k
-    // of the copy is o[src + k mod d], d = opos - src
+    // of the copy is the source's byte k mod d, d = opos - src
     const int d = opos - src;
+    // source byte k: sp[k], from the window when it is near (its mirror
+    // keeps sp[0..258] in it), else from the output
+    const uint8_t* sp = o + src;
+    if constexpr (kWin > 0)
+      if (d <= kWin) sp = win + ((src + wofs) & (kWin - 1));
     const int k3 = mlen - 3, k2 = mlen - 2, k1 = mlen - 1;
-    const int cu = o[src + (k3 < d ? k3 : k3 % d)];
-    const int b2 = o[src + (k2 < d ? k2 : k2 % d)];
-    const int b1 = o[src + (k1 < d ? k1 : k1 % d)];
+    const int cu = sp[k3 < d ? k3 : k3 % d];
+    const int b2 = sp[k2 < d ? k2 : k2 % d];
+    const int b1 = sp[k1 < d ? k1 : k1 % d];
     const int first = min(mlen, 16);
     uint8_t v[16];
     if (d >= first) {
 #pragma unroll
       for (int k = 0; k < 16; ++k)
-        if (k < first) v[k] = o[src + k];
+        if (k < first) v[k] = sp[k];
     }
     const int m0 = mru[cu * 2];
     const int at = opos;
@@ -119,14 +186,7 @@ struct Resolver {
     l2 = b2;
     l1 = b1;
     ahead(nt, nmidx);
-    if (d >= first) {
-#pragma unroll
-      for (int k = 0; k < 16; ++k)
-        if (k < first) o[at + k] = v[k];
-      if (mlen > 16) copy_match(o, at + 16, src + 16, mlen - 16);
-    } else {
-      copy_match(o, at, src, mlen);
-    }
+    store(at, sp, d, mlen, first, v);
     const int wu = (b2 << 8) | b1;
     if (m0 != wu) {
       mru[cu * 2 + 1] = m0;
@@ -151,7 +211,7 @@ struct Resolver {
       const int prev = l2;
       const int m0 = mru[prev * 2];
       const int rj = row[j];
-      o[opos++] = static_cast<uint8_t>(lit);
+      put(opos++, lit);
       l2 = ctx;
       l1 = lit;
       ahead(nt, nmidx);
@@ -163,8 +223,8 @@ struct Resolver {
       const int w0 = mru[ctx * 2], w1 = mru[ctx * 2 + 1];
       const int wv = t & 1 ? w1 : w0;
       const int b0 = (wv >> 8) & 255, b1 = wv & 255;
-      o[opos] = static_cast<uint8_t>(b0);
-      o[opos + 1] = static_cast<uint8_t>(b1);
+      put(opos, b0);
+      put(opos + 1, b1);
       opos += 2;
       l2 = b0;
       l1 = b1;
@@ -177,5 +237,7 @@ struct Resolver {
     return true;
   }
 };
+
+using Resolver = ResolverT<0>;   // K3: no output window
 
 }  // namespace zlt

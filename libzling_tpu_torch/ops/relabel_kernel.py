@@ -9,14 +9,21 @@ context's permutation, and rank i then swaps with rank ``MTF_NEXT[i]``
 
 Source note (``csrc/relabel.cu``):
   * replaces ``libzling_tpu/ops/relabel_kernel.py::_relabel_kernel``;
-  * bound on this card: the MTF chain is the one serial chain of encode
-    that crosses blocks -- each literal reads and swaps state the previous
-    literal of its context wrote -- so the walk runs on one thread and is
-    bound by the latency of its shared-memory loads;
-  * design: one CTA for the whole walk; r2s and s2r (u8 [256, 256] each,
-    128 KB) live in dynamic shared memory (above the 48 KB default, so
-    the wrapper raises the limit); units are read eight ahead of the
-    serial walk; the exit state is written back for the next group.
+  * bound on this card: the latency of the longest MTF chain.  A literal
+    reads and swaps only its own context's row of the state, so the walk
+    is 256 independent chains, one per context, each in stream order
+    (across blocks too), and the time is that of the busiest context's
+    chain of dependent shared-memory loads;
+  * design: one CTA of 256 threads, thread c walking context c.  r2s and
+    s2r (u8 [256, 256] each, 128 KB) live in dynamic shared memory (above
+    the 48 KB default, so the wrapper raises the limit).  The units of the
+    ranges come through shared memory in tiles of ``TILE`` units, the next
+    staged by a bulk copy (TMA, completed on an mbarrier) while this one is
+    worked on; each tile's literals are partitioned stably by context
+    (per-warp counts with ``__match_any_sync``, an exclusive scan, ranks in
+    lane order), each thread walks its context's list and the tile is
+    stored with the ranks, coalesced.  The exit state is written back for
+    the next group.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from __future__ import annotations
 import torch
 
 from . import mtf as mops
+
+TILE = 4096            # csrc/relabel.cu: kTile units a tile
 
 
 def relabel(units, unit_off, unit_cnt, state, mtfnext):

@@ -12,16 +12,26 @@ Source note (``csrc/resolve.cu``):
   * replaces ``libzling_tpu/ops/resolve_kernel.py::_resolve_kernel``;
   * bound on this card: one dependent chain per token, as K3 without the
     bit reader -- one thread of one CTA walks the stream, bound by the
-    latency of its loads (shared memory for the MTF table and word-MRU,
-    L1/L2 for tokens, the ring and match sources), not by bandwidth;
-  * design: the chunk loop runs inside the CTA where the TPU ran a
-    sequential grid.  The u8 MTF table (64 KB), the ring heads and the
-    word-MRU live in dynamic shared memory; the ring (4 MB) in global
-    memory, cleared by the whole CTA at each new block; thread 0 reads the
-    tokens from global memory and writes bytes straight into a u8 tensor at
-    the block's offset.  It shares K3's match step (``csrc/rolz.cuh``): the
-    next context comes from the copy's source bytes, and the next match's
-    ring slot is loaded as soon as that context is known.
+    latency of its loads, not by bandwidth: a match's chain is its ring
+    slot (L2: the ring is 4 MB) and then its source bytes, whose last one
+    is the next context;
+  * design: one CTA of two warps; the chunk loop runs inside it where the
+    TPU ran a sequential grid.  A producer warp stages every chunk's tokens
+    into a ring of ``TOKEN_RING`` tokens in shared memory by bulk copies
+    (TMA, completed on mbarriers) ahead of the resolver, so no token load
+    is on its chain.  The resolver shares K3's match step
+    (``csrc/rolz.cuh``: the next context comes from the copy's source
+    bytes, the next match's ring slot is loaded as soon as that context is
+    known) with an output window on: every byte goes to a circular window
+    of the block's latest ``WINDOW`` bytes in shared memory, a match whose
+    source lies in it reads its bytes there, and bulk copies (TMA, in
+    groups) move the window to the u8 output at the block's offset, so
+    that a source further back has reached the output when it is read.
+    The resolver waits for tokens and flushes the window once a batch of
+    256 tokens, so that its steps test nothing else.
+    The u8 MTF table (64 KB), the window, the token ring, the ring heads
+    and the word-MRU live in dynamic shared memory; the ring (4 MB) in
+    global memory, cleared at each new block.
 
 Not ported, because it is TPU layout or scheduling: the one-byte-per-int32
 output with its XLA repack, the ``FLUSH_ROWS`` row bases, the token slabs
@@ -49,6 +59,8 @@ from ..tables import MATCH_MIN_LEN
 from . import mtf as mops
 
 RING = 4096
+WINDOW = 1 << 17       # csrc/resolve.cu: the output window, ResolverT<17>
+TOKEN_RING = 4096      # csrc/resolve.cu: kTok tokens in the token ring
 
 
 @functools.lru_cache(maxsize=None)

@@ -329,3 +329,56 @@ def test_probe_shared_memory_ceiling(cuda):
         assert (got.word0, got.word1) == (want.word0, want.word1)
     with pytest.raises(RuntimeError):
         plim.smem_ceiling(optin + 1, cuda)
+
+
+RESOLVE_CASES = smoke.resolve_cases()
+
+
+@pytest.mark.parametrize("name", sorted(RESOLVE_CASES))
+def test_resolve_design_cases_equal_plain(cuda, name):
+    # K2's output window and token ring: matches W - 1, W and W + 1 bytes
+    # back, chunk and block edges, overlapping copies, chunks about the
+    # ring's length; then the same with a corrupt chunk (the producer is
+    # ahead of the resolver when it stops); each from the initial and from
+    # a carried MTF table (the tokens were written for the initial one, so
+    # from the carried one the stream may be corrupt anywhere)
+    chunks, sizes = RESOLVE_CASES[name]
+    for cs in (chunks, smoke.corrupt_chunk(chunks)):
+        args = smoke.resolve_args(cs, sizes)
+        table = tmtf.initial_table("cpu")
+        for k in range(2):
+            want = tresk.resolve_stream_plain(*args, table)
+            got = tresk.resolve_stream(*_on(args, cuda), table.to(cuda))
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+            if k == 0:
+                assert bool(want[1][:, 2].any()) == (cs is not chunks)
+            table = want[2]
+
+
+@pytest.mark.parametrize("name", sorted(smoke.relabel_cases()))
+def test_relabel_tile_cases_equal_plain(cuda, name):
+    # K5's tiles: a context across a tile edge, a tile of literals only,
+    # one without any, short ranges with gaps; from the initial and from a
+    # carried state
+    units, offs, cnts = smoke.relabel_cases()[name]
+    state = tmtf.initial_state("cpu")
+    for _ in range(2):
+        rargs = (units, offs, cnts, state, tmtf.mtf_next("cpu"))
+        want = trk.relabel_plain(*rargs)
+        got = trk.relabel(*(a.to(cuda) for a in rargs))
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        state = want[1]
+
+
+@pytest.mark.parametrize("name", [
+    "match without its index", "index 0 mid-chunk",
+    "unwritten slot mid-chunk"])
+def test_split_crafted_chunks_equal_plain(cuda, name):
+    # K1 + K2 on corrupt chunks thousands of tokens long: K2's producer has
+    # staged past the fault when the resolver meets it
+    s = tgd.parse(smoke.crafted_streams()[name])
+    _split_equal(cuda, s, 0, len(s.rlens), tmtf.initial_table("cpu"))

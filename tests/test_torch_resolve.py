@@ -3,12 +3,16 @@ Pallas resolve kernel in interpret mode (``resolve_stream``), fed the same
 tokens: multi-chunk multi-block streams from the initial and from a carried
 MTF table, and crafted corrupt chunks.  Then the split path on chunks with
 a match symbol as a block's head byte, where the split and the fused
-decoders differ in both packages.
+decoders differ in both packages.  Last, token streams aimed at K2's
+design (``chip_smoke.resolve_cases``) against spec's token decoder.
 
 Tolerance: exact equality -- bytes, statuses and MTF tables are integers.
 """
 
 from __future__ import annotations
+
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke as smoke
 from libzling_tpu import device as jdevice
 from libzling_tpu import spec
 from libzling_tpu.ops import resolve_kernel as jrk
@@ -165,3 +170,61 @@ def test_head_byte_match_split_follows_jax_split(name):
     assert tdevice.decode(stream, device="cpu", fused=False) == split
     assert jdevice.decode(stream, interpret=True) == fused
     assert tdevice.decode(stream, device="cpu") == fused
+
+
+# ---- inputs aimed at K2's design (output window, token ring)
+
+RESOLVE_CASES = smoke.resolve_cases()
+
+
+def _spec_resolve(chunks, sizes):
+    """spec's token decoder over (block, tokens, encpos) chunks: the bytes,
+    every block's rings reset at its start, the MTF state carried."""
+    dec, parts = spec.RolzDecoder(), []
+    for b, size in enumerate(sizes):
+        dec.reset()
+        buf, pos = bytearray(size), 0
+        for _, toks, encpos in (c for c in chunks if c[0] == b):
+            pos = dec.decode_chunk(toks, buf, encpos, pos)
+        parts.append(bytes(buf))
+    return b"".join(parts)
+
+
+@pytest.mark.parametrize("name", sorted(RESOLVE_CASES))
+def test_resolve_design_cases_equal_spec(name):
+    # matches W - 1, W and W + 1 bytes back (W: K2's output window), chunk
+    # and block edges, overlapping copies, chunks about the token ring's
+    # length; pad tokens between chunks are never read
+    chunks, sizes = RESOLVE_CASES[name]
+    args = smoke.resolve_args(chunks, sizes)
+    out, status, table = trk.resolve_stream(*args, tmtf.initial_table("cpu"))
+    assert out.numpy().tobytes() == _spec_resolve(chunks, sizes)
+    assert status[:, 0].tolist() == [e for _, _, e in chunks]
+    assert status[:, 1].tolist() == args[2].tolist()
+    assert not status[:, 2].any()
+    assert not torch.equal(table, tmtf.initial_table("cpu"))
+
+
+def test_window_and_token_ring_match_the_kernel_source():
+    src = (pathlib.Path(trk.__file__).parent.parent / "csrc" /
+           "resolve.cu").read_text()
+    log = trk.WINDOW.bit_length() - 1
+    assert trk.WINDOW == 1 << log
+    assert f"using Res = ResolverT<{log}>;" in src
+    piece = int(re.search(r"constexpr int kPiece = (\d+);", src)[1])
+    pieces = int(re.search(r"constexpr int kPieces = (\d+);", src)[1])
+    assert piece * pieces == trk.TOKEN_RING
+
+
+@pytest.mark.parametrize("name", sorted(RESOLVE_CASES))
+def test_resolve_corrupt_design_cases_like_spec(name):
+    # a match of index 0 in the middle chunk: spec rejects the stream, the
+    # plain K2 marks that chunk and every later one bad
+    chunks, sizes = RESOLVE_CASES[name]
+    bad = smoke.corrupt_chunk(chunks)
+    with pytest.raises(ValueError):
+        _spec_resolve(bad, sizes)
+    c = len(chunks) // 2
+    _, status, _ = trk.resolve_stream(*smoke.resolve_args(bad, sizes),
+                                      tmtf.initial_table("cpu"))
+    assert status[:, 2].tolist() == [0] * c + [1] * (len(chunks) - c)
