@@ -24,7 +24,11 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      overlapping copies; chunks about its token ring's length), each also
      with a corrupt chunk, and K5 on ``relabel_cases`` (a context across a
      tile edge, a tile of literals only, one without any, short ranges
-     with gaps), each from the initial and from a carried MTF state;
+     with gaps), each from the initial and from a carried MTF state; then
+     K1 on ``k1_cases`` (chunks over many of its segments, near-fixed-
+     length codes, one-symbol tables, 1-3 tokens, a match symbol last;
+     one chunk cut and flipped in its first, a middle and its last segment
+     and at a segment edge), tokens and every status row;
   4. the main path at full size: a 32 MiB corpus (1 MiB of random bytes
      spliced into the middle, so the adaptive level drop fires) encoded at
      e0 through ``libzling_tpu_torch.encode`` must equal the port's own
@@ -37,7 +41,10 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      launched.  Then each kernel again on the inputs the e0 run gave it
      (both 16 MiB blocks, 262,144-token chunks, the e0 stream) against its
      plain version (exact equality), timed, with the bytes it must move;
-     K4 also alone at the e4 shapes (timed);
+     K4 also alone at the e4 shapes (timed); K1 also at the e4 shapes
+     (against its plain version) and on the e0 stream's near-fixed-length
+     chunks and as many text chunks, each set alone (timed), with the
+     device time of each of its four launches (torch.profiler);
   5. corrupt streams (match index 0, encpos mismatch, a match without its
      index, corrupt tokens mid-chunk) must raise ValueError through the
      fused, split and group paths on the card;
@@ -51,9 +58,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      and only the shared-memory launch one byte past the card's opt-in
      limit may be refused (and must be).
 
-A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K2 per token,
-K5 per literal of its busiest context) in ns and in SM cycles at the clock
-the long probes read.  The
+A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K1 and K2 per
+token -- K1 also at e4 and per chunk kind --, K5 per literal of its
+busiest context) in ns and in SM cycles at the clock the long probes read.  The
 second-to-last line is a JSON object with each kernel's launches in the
 main path, its largest error over both comparisons, its time and its plain
 version's at the main path's e0 shapes, and its bound (the bytes it must
@@ -66,6 +73,7 @@ The script needs one CUDA device and imports no JAX.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -409,6 +417,99 @@ def relabel_cases() -> dict:
     }
 
 
+def k1_chunk(tokens, rlen: int | None = None):
+    """(len1, len2, body, rlen) of one chunk holding ``tokens``, coded by
+    the port's Huffman stage; its header declares ``rlen`` tokens."""
+    from libzling_tpu_torch import group_decode as gd
+
+    s = gd.parse(chunk_stream(tokens, len(tokens), rlen))
+    return s.len1[0], s.len2[0], s.bodies[0], int(s.rlens[0])
+
+
+K1_CASES = ("valid over many segments", "near-fixed-length codes",
+            "one-symbol tables", "1-3 tokens, a match symbol last", "cut",
+            "bit flips", "300 small chunks")
+
+
+@functools.lru_cache(maxsize=None)
+def k1_cases() -> dict:
+    """Chunks aimed at K1's segments (``SEG_BITS`` bits each): name ->
+    (len1 [C, 514], len2 [C, 32], bodies, rlens), each case one K1 call.
+    Valid chunks over many segments (13..15-bit codes among them), near-
+    fixed-length codes (the smoke's random bytes: every literal about as
+    often), one-symbol alphabet-1 and alphabet-2 tables, chunks of 1-3
+    tokens and a match symbol in last place (emitted alone), one chunk cut
+    and flipped in its first, a middle and its last segment and exactly at
+    a segment edge, and claiming more tokens than its body holds, and 300
+    small chunks."""
+    from libzling_tpu_torch.ops.entropy_kernel import SEG_BITS
+
+    rng = np.random.default_rng(43)
+
+    def units(n, match_frac, n_syms=256):
+        toks = []
+        for m, s, i in zip(rng.random(n) < match_frac,
+                           rng.integers(0, n_syms, n).tolist(),
+                           rng.integers(1, 4096, n).tolist()):
+            toks += [258 + s % 256, i] if m else [s]
+        return toks
+
+    fib = [1, 1]
+    while len(fib) < 16:
+        fib.append(fib[-1] + fib[-2])
+    # Fibonacci counts: a code tree 15 deep (13..15-bit codes take the
+    # canonical tiers, not the 12-bit LUT)
+    skewed = [s for s, k in enumerate(fib) for _ in range(4 * k)]
+
+    def near_fixed(k):
+        return rng.permutation(np.repeat(np.arange(256), k)).tolist()
+
+    def case(chunks):
+        len1, len2, bodies, rlens = zip(*chunks)
+        return np.stack(len1), np.stack(len2), list(bodies), list(rlens)
+
+    def flip(body, bit):
+        b = bytearray(body)
+        b[bit >> 3] ^= 1 << (bit & 7)
+        return bytes(b)
+
+    base = units(6000, 0.35)
+    l1, l2, body, n = k1_chunk(base)
+    nbits = 8 * len(body)
+    mid = nbits // 2 // SEG_BITS * SEG_BITS
+    assert mid >= 3 * SEG_BITS
+    places = [7, mid + SEG_BITS // 3, nbits - 12, mid, mid - 1]
+    last = units(5000, 0.3) + [301, 7]
+    # one alphabet-2 code: a flipped index bit meets a missing code
+    a1, a2, one, m = k1_chunk([65, 300, 5, 66, 301, 5] * 1000)
+    small = [k1_chunk(units(k, 0.3)) for k in (1, 7, 40, 300)]
+    cases = {
+        "valid over many segments": case([
+            k1_chunk(units(6000, 0.4)), k1_chunk(units(5000, 0.0, 64)),
+            k1_chunk(rng.permutation(skewed).tolist())]),
+        "near-fixed-length codes": case([
+            k1_chunk(near_fixed(24)),
+            k1_chunk(near_fixed(12) + [300, 9, 301, 700])]),
+        "one-symbol tables": case([
+            k1_chunk([65] * 20000), k1_chunk([65, 300, 5] * 2000 + [66]),
+            k1_chunk([300, 5] * 3000)]),
+        "1-3 tokens, a match symbol last": case([
+            k1_chunk([65]), k1_chunk([65, 66]), k1_chunk([65, 300, 5], 2),
+            k1_chunk([300, 5, 66], 1), k1_chunk(last, len(last) - 1)]),
+        "cut": case([(l1, l2, body, n)] + [
+            (l1, l2, body[:p // 8], n) for p in places]
+            + [(l1, l2, body, n + 40)]),
+        "bit flips": case([(l1, l2, flip(body, p), n) for p in places]
+                          + [(l1, l2, flip(flip(body, mid + 1), 9), n)]
+                          + [(a1, a2, flip(one, p), m) for p in (
+                              9, 8 * len(one) // 2, 8 * len(one) - 3)]),
+        # more chunks than the plan's tile of 256
+        "300 small chunks": case(small * 75),
+    }
+    assert tuple(cases) == K1_CASES
+    return cases
+
+
 def tokenize_args(data: bytes, level: int, geom: dict, mixed: bool = False):
     """K4's inputs for ``data`` cut in blocks of ``geom``: (buf, the rest
     of ``tokenize``'s arguments); ``mixed`` puts level 0 in every block's
@@ -509,6 +610,24 @@ def check_edges(dev, row):
               mops.initial_state("cpu"))
 
 
+def check_k1(dev, row):
+    """Phase 3d: K1 on ``k1_cases`` against its plain version (tokens and
+    every status row, valid and corrupt chunks)."""
+    from libzling_tpu_torch.ops import entropy_kernel as ek
+
+    for name, case in k1_cases().items():
+        args = ek.stage_chunks(*case, "cpu")
+        args_d = on(args, dev)
+        got = ek.decode_chunks(*args_d)
+        t = time.perf_counter()
+        want = ek.decode_chunks_plain(*args)
+        plain = (time.perf_counter() - t) * 1e3
+        row("entropy_decode", max_abs_err(zip(got, want)),
+            cuda_ms(lambda: ek.decode_chunks(*args_d), 1), plain)
+        assert bool(want[1][:, 2].any()) == (name in ("cut", "bit flips")), \
+            name
+
+
 def check_kernels(dev, z):
     """Phase 3: each kernel against its plain version; returns their rows."""
     from libzling_tpu_torch import device as zdev
@@ -583,19 +702,45 @@ def check_kernels(dev, z):
     assert check_split(dev, st, [(0, 1)], row) == b"\x02\x056L"
     check_designs(dev, z, row)
     check_edges(dev, row)
+    check_k1(dev, row)
     for r in rows.values():
         assert r["max_abs_err"] == 0, rows
     return rows
 
 
-def check_full_size(data: bytes, stream: bytes, dev):
+def k1_phases(args) -> dict:
+    """Device time of each of K1's four launches on ``args`` (CUDA
+    tensors), in us, a mean over three calls (torch.profiler)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+    from libzling_tpu_torch.ops import entropy_kernel as ek
+
+    ek.decode_chunks(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ek.decode_chunks(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(plan|transfer|scan|write)_kernel", e.key)
+        if m:
+            out[m.group(1)] = e.device_time_total / 3
+    return out
+
+
+def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
     """Phase 4b: each kernel on the inputs the main path gives it at 32 MiB
     e0 (two 16 MiB blocks in one group, 262,144-token chunks, the initial
     MTF state, the e0 stream; K1 and K2 as ``decode(fused=False)`` calls
     them, over every chunk of the stream) against its plain version on CPU
     copies of the same inputs (exact equality).  One launch each, timed
     with CUDA events; the plain version's host time beside it.  Returns the
-    rows and the unit and token counts walked."""
+    rows and the unit and token counts walked.  K1 also on the e0
+    stream's near-fixed-length chunks (its random bytes) and on as many
+    text chunks, each set in one call, and on the e4 stream (``stream4``)
+    against its plain version."""
     from libzling_tpu_torch.tables import (BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ,
                                            SENTINEL_LEN)
     from libzling_tpu_torch import device as zdev
@@ -688,6 +833,44 @@ def check_full_size(data: bytes, stream: bytes, dev):
                             lambda w: nbytes(*k1, *w))
     assert not estatus[:, 2].any()
     assert estatus[:, 0].tolist() == st.rlens.tolist()
+    # K1 by chunk kind: near-fixed-length (every used alphabet-1 code within
+    # 2 bits of the others: the random bytes) against text
+    used = [st.len1[c][st.len1[c] > 0] for c in range(len(st.rlens))]
+    fixed = [c for c, u in enumerate(used)
+             if u.size >= 256 and u.max() - u.min() <= 2]
+    text = [c for c in range(len(st.rlens)) if c not in fixed][:len(fixed)]
+    assert fixed
+    offs = k1[5].tolist()
+    kinds = {}
+    for kind, cs in (("near-fixed-length", fixed), ("text", text)):
+        args = ek.stage_chunks(st.len1[cs], st.len2[cs],
+                               [st.bodies[c] for c in cs], st.rlens[cs], "cpu")
+        args_d = on(args, dev)
+        got = ek.decode_chunks(*args_d)
+        want = torch.cat([tokens[offs[c]:offs[c] + int(st.rlens[c])]
+                          for c in cs])
+        assert torch.equal(got[0].cpu(), want), kind
+        assert torch.equal(got[1].cpu(), estatus[cs]), kind
+        kinds[kind] = dict(chunks=cs, tokens=int(st.rlens[cs].sum()),
+                           ms=cuda_ms(lambda: ek.decode_chunks(*args_d)),
+                           phases_us=k1_phases(args_d))
+    rows["entropy_decode"]["kinds"] = kinds
+    rows["entropy_decode"]["phases_us"] = k1_phases(k1d)
+    # K1 at the e4 main path's shapes
+    st4 = gd.parse(stream4)
+    k14, _ = st4.stage_split(0, len(st4.rlens), "cpu")
+    k14_d = on(k14, dev)
+    got = []
+    ms = cuda_ms(lambda: got.append(ek.decode_chunks(*k14_d)), 1, False)
+    want = ek.decode_chunks_plain(*k14)
+    assert not want[1][:, 2].any()
+    err = max_abs_err(zip(got[0], want))
+    rows["entropy_decode"]["e4"] = dict(
+        ms=ms, max_abs_err=err, chunks=len(st4.rlens),
+        tokens=int(st4.rlens.sum()), bytes=nbytes(*k14, *want),
+        phases_us=k1_phases(k14_d))
+    rows["entropy_decode"]["max_abs_err"] = max(
+        rows["entropy_decode"]["max_abs_err"], err)
     table = mops.initial_table("cpu")
     tokd, tabd = tokens.to(dev), table.to(dev)
     out, status, _ = check(
@@ -945,7 +1128,7 @@ def main() -> int:
             bytes=len(x), stream=len(stream), ratio=len(stream) / len(x),
             blocks=-(-len(x) // (16 * MiB)), canonical=True, round_trip=True,
             **times)))
-    full, walked = check_full_size(data, streams[0], dev)
+    full, walked = check_full_size(data, streams[0], streams[4], dev)
     t0 = phase("kernel==plain at e0 full size", t0,
                json.dumps(dict(full, **walked)))
 
@@ -1003,11 +1186,17 @@ def main() -> int:
                            for r in rows_m if r.get("ok", True)
                            and r["ms"] >= 1.0]))
     k4, k4e4 = full["tokenize"], full["tokenize"]["e4"]
+    k1 = full["entropy_decode"]
     per_unit = {
         "sm_ghz": ghz,
         "tokenize e0": k4["ms"] * 1e6 / k4["walker_units"],
         "tokenize e4": k4e4["ms"] * 1e6 / k4e4["walker_units"],
         "decode_fused e0": full["decode_fused"]["ms"] * 1e6 / walked["units"],
+        "entropy_decode e0 (a token)": k1["ms"] * 1e6 / walked["tokens"],
+        "entropy_decode e4 (a token)": k1["e4"]["ms"] * 1e6
+        / k1["e4"]["tokens"],
+        **{f"entropy_decode e0, {kind} chunks alone (a token)":
+           r["ms"] * 1e6 / r["tokens"] for kind, r in k1["kinds"].items()},
         "resolve e0 (a token)": full["resolve"]["ms"] * 1e6 / walked["tokens"],
         "relabel e0 (a literal of the busiest context)":
             full["relabel"]["ms"] * 1e6 / full["relabel"]["busiest"],

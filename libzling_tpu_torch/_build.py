@@ -38,15 +38,18 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # entry point -> argtypes (every pointer and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits)
 _SIGNATURES = {
     # meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base, n_chunks,
     # out, ring, status, stream
     "zlt_decode_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
-    # meta, order1, lut1, lut2, words, tok_off, n_chunks, tokens, status,
-    # stream
-    "zlt_entropy_decode": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    # meta, order1, lut1, lut2, words, n_words, tok_off, n_chunks,
+    # scratch, tokens, status, stream
+    "zlt_entropy_decode": [_P, _P, _P, _P, _P, _L, _P, _I, _P, _P, _P, _P],
+    # n_chunks, n_words -> int32 words of K1's scratch (no launch)
+    "zlt_entropy_decode_scratch": [_I, _L],
     # tokens, tok_off, rlens, encpos, new_block, out_base, mtf0, mtfnext,
     # n_chunks, out, ring, status, mtf_out, stream
     "zlt_resolve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
@@ -59,6 +62,9 @@ _SIGNATURES = {
     # state_out, stream
     "zlt_relabel": [_P, _P, _P, _I, _P, _P, _P, _P, _P],
 }
+
+# entry points that return something else than a CUDA error code
+_RESTYPES = {"zlt_entropy_decode_scratch": _L}
 
 # the cost probes (csrc/probes/*.cu); `out` is u64 [3]: word 0, word 1,
 # cycles
@@ -155,7 +161,7 @@ def _load(key: str, path_fn, signatures) -> ctypes.CDLL:
             for name, argtypes in signatures.items():
                 fn = getattr(dll, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _LIBS[key] = dll
     return _LIBS[key]
 

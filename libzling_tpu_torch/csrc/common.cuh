@@ -1,8 +1,9 @@
 // Shared constants and helpers of the zling Hopper kernels.
 //
-// Every kernel is a serial state machine over bytes: one CTA per
-// independent lane, thread 0 walks the lane, and the CTA's other threads
-// clear state and load tables between __syncthreads().  Entry points have
+// Most kernels are serial state machines over bytes: one CTA per
+// independent lane, one thread walks the lane, and the CTA's other threads
+// clear state and load tables between __syncthreads() (K1 instead walks
+// the segments of each chunk side by side).  Entry points have
 // a plain C interface (pointers and the stream as void*) and return
 // cudaGetLastError() after their launch.
 #pragma once

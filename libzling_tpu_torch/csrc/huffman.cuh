@@ -54,6 +54,24 @@ __device__ __forceinline__ void refill(uint64_t& acc, int& nbits, int& wpos,
   }
 }
 
+// The reader's state at bit p of a chunk, as a walk from bit 0 has it at
+// the start of a unit once it has refilled: `nbits` in [32, 63] (64 at bit
+// 0), so `wpos` -- which `wpos > n_words` tests -- is the walk's too.
+__device__ __forceinline__ void seek_bit(int p, const uint32_t* wp,
+                                         uint64_t& acc, int& nbits,
+                                         int& wpos) {
+  const int k = p >> 5, r = p & 31;
+  if (r == 0 && p > 0) {
+    acc = wp[k];
+    nbits = 32;
+    wpos = k + 1;
+  } else {
+    acc = (wp[k] | (static_cast<uint64_t>(wp[k + 1]) << 32)) >> r;
+    nbits = 64 - r;
+    wpos = k + 2;
+  }
+}
+
 // Codes of 13..15 bits: the unique tier whose MSB-first range holds the
 // reversed window's top bits.
 __device__ __forceinline__ int tier_lookup(uint32_t lo, const int* tier,

@@ -6,7 +6,11 @@ and the kernel ``_decode_chunk_kernel`` (via ``_decode_call``, entry
 ``decode_chunks``).  The tables are in the JAX package's layout, so the two
 packages can be compared entry for entry; K1 (``decode_chunks``,
 ``csrc/entropy_decode.cu``) and the fused decode K3 (``decode_fused.py``)
-read them through one reader (``csrc/huffman.cuh``).
+read them through one reader (``csrc/huffman.cuh``).  On the card K1 cuts
+each chunk into segments of ``SEG_BITS`` payload bits, walks every
+segment from each of the 31 bit offsets its first unit can start at, joins
+the walks by a scan from bit 0 and re-decodes each segment from its true
+start; the plain version is the serial walk.
 
 K1 lays the tokens flat: chunk ``c`` at ``tok_off[c]``, the exclusive
 cumulative sum of the chunks' token counts, a match as two tokens (its
@@ -37,6 +41,7 @@ from ..tables import (
 
 LUT_BITS = 12                 # fast-path window width for alphabet 1
 SLAB_WORDS = 4096             # trailing zero words after the last chunk
+SEG_BITS = 2048               # payload bits of K1's segments (kSegBits)
 M32 = 0xFFFFFFFF
 
 
@@ -218,8 +223,11 @@ def decode_chunks(meta, order1, lut1, lut2, words, tok_off, n_tokens: int):
     """K1: decode every chunk's payload to tokens.
 
     Returns (tokens i32 [n_tokens], status i32 [C, 3]); a status row is
-    (emitted, bit_pos, bad).  CUDA tensors launch the kernel (one CTA per
-    chunk); CPU tensors run the plain version.
+    (emitted, bit_pos, bad).  CUDA tensors launch the kernel (the chunks
+    cut into segments of ``SEG_BITS`` bits, decoded in parallel and joined
+    by a scan; its scratch, ~2 bytes a payload word, is allocated here);
+    CPU tensors run the plain version.  The chunks lie in ``words`` in
+    order and apart, as ``pack_payload_words`` lays them.
     """
     if meta.device.type == "cpu":
         return decode_chunks_plain(meta, order1, lut1, lut2, words, tok_off,
@@ -239,10 +247,15 @@ def decode_chunks(meta, order1, lut1, lut2, words, tok_off, n_tokens: int):
                          device=meta.device)
     status = torch.zeros((C, 3), dtype=torch.int32, device=meta.device)
     if C:
-        err = _build.lib().zlt_entropy_decode(
+        lib = _build.lib()
+        scratch = torch.empty(
+            lib.zlt_entropy_decode_scratch(C, words.numel()),
+            dtype=torch.int32, device=meta.device)
+        err = lib.zlt_entropy_decode(
             meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(),
-            lut2.data_ptr(), words.data_ptr(), tok_off.data_ptr(), C,
-            tokens.data_ptr(), status.data_ptr(), _build.stream_ptr(meta))
+            lut2.data_ptr(), words.data_ptr(), words.numel(),
+            tok_off.data_ptr(), C, scratch.data_ptr(), tokens.data_ptr(),
+            status.data_ptr(), _build.stream_ptr(meta))
         _build.check(err, "zlt_entropy_decode")
         decode_chunks.launches += 1
     return tokens[:n_tokens], status

@@ -382,3 +382,32 @@ def test_split_crafted_chunks_equal_plain(cuda, name):
     # staged past the fault when the resolver meets it
     s = tgd.parse(smoke.crafted_streams()[name])
     _split_equal(cuda, s, 0, len(s.rlens), tmtf.initial_table("cpu"))
+
+
+@pytest.mark.parametrize("name", smoke.K1_CASES)
+def test_k1_cases_equal_plain(cuda, name):
+    # K1's segments: chunks over many segments, near-fixed-length codes,
+    # one-symbol tables, 1-3 tokens, a match symbol last, a chunk cut and
+    # flipped in its first, a middle and its last segment and at a segment
+    # edge, 300 chunks: tokens and every status row
+    args = tek.stage_chunks(*smoke.k1_cases()[name], "cpu")
+    want = tek.decode_chunks_plain(*args)
+    got = tek.decode_chunks(*_on(args, cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_k1_overlapping_chunks_are_bad(cuda):
+    # chunks laid over each other hold more segments than the scratch K1
+    # sizes from the words' length: every chunk is bad, nothing is written
+    l1, l2, body, n = smoke.k1_chunk(list(range(200)) * 40)
+    args = tek.stage_chunks(np.stack([l1] * 3), np.stack([l2] * 3),
+                            [body] * 3, [n] * 3, "cpu")
+    meta = args[0].clone()
+    meta[:, 0, 0] = args[4].numel() - 4      # n_words: every word
+    meta[:, 0, 2] = 0                         # word_base: all at word 0
+    tokens, status = tek.decode_chunks(meta.to(cuda), *_on(args[1:], cuda))
+    torch.cuda.synchronize()
+    assert status.cpu().tolist() == [[0, 0, 1]] * 3
+    assert not tokens.cpu().any()
