@@ -56,7 +56,23 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      full loop counts (``measure_all``), one line each with ns and cycles
      a step and the SM clock they imply; every probe must have launched,
      and only the shared-memory launch one byte past the card's opt-in
-     limit may be refused (and must be).
+     limit may be refused (and must be);
+  7. the lanes (``libzling_tpu_torch.parallel``) over two device entries --
+     two GPUs where the machine has them, else its one card twice, which
+     measures the lanes' overhead, not their scaling: ``mesh_encode`` (one
+     block a device) of a 48 MiB corpus at e0 (three blocks: the MTF chain
+     crosses a device edge and a group edge, and the look-ahead runs) and
+     of the 20 MiB e4 input, each stream equal to the native engine's and
+     to ``encode``'s, K4 and K5 launched at least twice each, with the
+     ``enc.*`` counters; ``mesh_decode`` (one block a group) of both back
+     to the input, K1 at least twice a group and K2 once, then a
+     ``stage_probe`` run and the phase-5 corrupt streams (ValueError);
+     then ``distributed_encode`` and ``distributed_decode`` of the 32 MiB
+     e0 input in two worker processes (``--lanes-worker``, gloo, one rank
+     a GPU or both on the card, the kernels built by this process first,
+     a time limit on both): both ranks' streams equal the engine's and
+     both decodes the input.  One ``[lanes ...]`` line each, with its
+     times, MB/s and launches beside the card's name and power limit.
 
 A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K1 and K2 per
 token -- K1 also at e4 and per chunk kind --, K5 per literal of its
@@ -67,7 +83,8 @@ version's at the main path's e0 shapes, and its bound (the bytes it must
 move over 3.35 TB/s) -- and for each probe row its launches in phase 6,
 its largest error, its bound, and per variant its time and cycles a step
 at the full loop count and its plain version's time at ``plain_n`` steps;
-the last line is ``{"ok": true, "device": {...}}``.
+the last line is ``{"ok": true, "device": {...}}``.  Launches in the
+kernels line sum the drives of phases 4 and 7 (the lane workers' too).
 The script needs one CUDA device and imports no JAX.
 """
 
@@ -76,6 +93,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import socket
 import subprocess
 import sys
 import time
@@ -1034,6 +1052,197 @@ def probe_rows(checked, measured, launches):
     return out
 
 
+def corpus(size: int) -> bytes:
+    """``size`` bytes of ``tools/make_corpus`` text with 1 MiB of seeded
+    random bytes spliced into its middle, so the adaptive level drop
+    fires."""
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from make_corpus import make_corpus
+
+    data = bytearray(make_corpus(size))
+    rng = np.random.default_rng(20261016)
+    mid = len(data) // 2 - MiB // 2
+    data[mid:mid + MiB] = rng.integers(0, 256, MiB, dtype=np.uint8).tobytes()
+    return bytes(data)
+
+
+LANE_WORKER_S = 300    # the 2-process lane's workers, at most
+LANES_DIR = os.path.join(REPO, "build", "lanes")
+
+
+def lane_devices() -> list:
+    """Phase 7's two device entries: two GPUs where the machine has them,
+    else its one card twice."""
+    return [torch.device("cuda", 0),
+            torch.device("cuda", 1 if torch.cuda.device_count() > 1 else 0)]
+
+
+def check_lanes(drive, launches: dict, engine, x32: bytes, s32: bytes,
+                x20: bytes, s20: bytes, corrupt: dict, card: str) -> dict:
+    """Phase 7: the lanes.  ``mesh_encode`` over two device entries (one
+    block a device) on a 48 MiB e0 corpus (three blocks: the MTF chain
+    crosses a device edge and a group edge, and the look-ahead runs) and
+    on the 20 MiB e4 input, each stream equal to the native engine's and
+    to ``encode``'s; ``mesh_decode`` (one block a group) back to the input,
+    with a stage-probe run, and the corrupt streams rejected; then
+    ``distributed_encode`` and ``distributed_decode`` in two gloo worker
+    processes on the card(s), on the 32 MiB e0 input, whose launches are
+    added to ``launches`` (``drive`` adds the others').  Returns each
+    lane's launches by kernel (the workers' summed)."""
+    import libzling_tpu_torch as z
+    from libzling_tpu_torch import parallel
+    from libzling_tpu_torch.utils import metrics
+
+    devs = lane_devices()
+    x48 = corpus(48 * MiB)
+    s48 = engine.encode(x48, 0)
+    assert z.encode(x48, 0) == s48, "e0 48 MiB: encode != engine"
+    split = ("entropy_decode", "resolve")
+    lanes = {}
+
+    def line(name, x, sec, **kw):
+        d = dict(card=card, devices=[str(d) for d in devs], bytes=len(x),
+                 s=sec, MBps=len(x) / sec / 1e6, **kw)
+        print(f"[lanes {name}] " + json.dumps(d), flush=True)
+        lanes[name] = kw.get("launches", {})
+
+    for tag, x, level, want in (("e0 48 MiB", x48, 0, s48),
+                                ("e4 20 MiB", x20, 4, s20)):
+        metrics.registry.reset()
+        stream, sec, n = drive(lambda: parallel.mesh_encode(x, level, devs),
+                               ("tokenize", "relabel"))
+        assert stream == want, f"mesh_encode {tag} != engine / encode"
+        assert n["tokenize"] >= 2 and n["relabel"] >= 2, n
+        counters = metrics.registry.snapshot()["counters"]
+        line(f"mesh_encode {tag}", x, sec, launches=n, counters={
+            k: counters.get(k, 0) for k in ("enc.schedule_mispredicts",
+                                            "enc.pipeline_redispatch")})
+        blocks = -(-len(x) // (16 * MiB))
+        back, sec, n = drive(lambda: parallel.mesh_decode(stream, devs), split)
+        assert back == x, f"mesh_decode {tag} round trip differs"
+        assert n["entropy_decode"] >= 2 * blocks and \
+            n["resolve"] == blocks, n
+        line(f"mesh_decode {tag}", x, sec, launches=n)
+    probe = {}
+    back, sec, _ = drive(lambda: parallel.mesh_decode(
+        s48, devs, stage_probe=probe), split)
+    assert back == x48
+    print("[lanes mesh_decode e0 48 MiB stage_probe] " + json.dumps(
+        dict(card=card, s=sec, **probe)), flush=True)
+    for name, bad in corrupt.items():
+        try:
+            parallel.mesh_decode(bad, devs)
+        except ValueError:
+            continue
+        raise AssertionError(f"corrupt stream {name} accepted (mesh)")
+
+    # two processes, one rank each, gloo: the kernels are built already
+    os.makedirs(LANES_DIR, exist_ok=True)
+    with open(os.path.join(LANES_DIR, "data"), "wb") as f:
+        f.write(x32)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{sk.getsockname()[1]}"
+    t = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lanes-worker", init,
+         str(r)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    logs = []
+    deadline = time.monotonic() + LANE_WORKER_S
+    try:
+        for p in procs:
+            logs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError("a lane worker did not end within "
+                             f"{LANE_WORKER_S} s:\n" + "\n".join(logs))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    sec = time.perf_counter() - t
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"lane worker {r} failed:\n{log}"
+        with open(os.path.join(LANES_DIR, f"rank{r}.stream"), "rb") as f:
+            assert f.read() == s32, f"rank {r}: stream != engine"
+        with open(os.path.join(LANES_DIR, f"rank{r}.out"), "rb") as f:
+            assert f.read() == x32, f"rank {r}: decode differs"
+        got = json.loads([ln for ln in log.splitlines()
+                          if ln.startswith("{")][-1])
+        for path in ("encode", "decode"):
+            got[path]["MBps"] = len(x32) / got[path]["s"] / 1e6
+        print(f"[lanes distributed rank {r}] " + json.dumps(
+            dict(card=card, **got)), flush=True)
+        for path in ("encode", "decode"):
+            counts = lanes.setdefault(f"distributed {path}", {})
+            for k, v in got[path]["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+                launches[k] += v
+    print("[lanes distributed] " + json.dumps(dict(
+        card=card, ranks=2, backend="gloo", bytes=len(x32), wall_s=sec,
+        same_stream_on_both_ranks=True)), flush=True)
+    return lanes
+
+
+def lanes_worker(init: str, rank: str) -> int:
+    """One rank of phase 7's 2-process lane (``--lanes-worker``): encode and
+    decode the 32 MiB input with ``distributed_encode`` and
+    ``distributed_decode`` on GPU rank mod the GPUs, gloo between the
+    ranks; writes its stream and output under ``build/lanes`` and prints
+    its times and launch counts as the last line."""
+    import datetime
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    from libzling_tpu_torch import parallel
+    from libzling_tpu_torch.ops import entropy_kernel as ek
+    from libzling_tpu_torch.ops import relabel_kernel as rlk
+    from libzling_tpu_torch.ops import resolve_kernel as rk
+    from libzling_tpu_torch.ops import tokenize_kernel as tkk
+
+    r = int(rank)
+    assert parallel.init_distributed(init, 2, r, backend="gloo",
+                                     timeout=datetime.timedelta(seconds=120))
+    dev = torch.device("cuda", r % torch.cuda.device_count())
+    with open(os.path.join(LANES_DIR, "data"), "rb") as f:
+        x = f.read()
+    kernels = {"tokenize": tkk.tokenize, "relabel": rlk.relabel,
+               "entropy_decode": ek.decode_chunks,
+               "resolve": rk.resolve_stream}
+    res = {}
+    for path, fn, want in (
+            ("encode", lambda: parallel.distributed_encode(x, 0, device=dev),
+             ("tokenize", "relabel")),
+            ("decode", lambda: parallel.distributed_decode(res["encode"],
+                                                          device=dev),
+             ("entropy_decode", "resolve"))):
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        res[path] = fn()
+        torch.cuda.synchronize(dev)
+        res[path + "_stat"] = dict(
+            s=time.perf_counter() - t,
+            launches={k: kernels[k].launches for k in want})
+        assert all(res[path + "_stat"]["launches"].values()), res
+    for name, key in (("stream", "encode"), ("out", "decode")):
+        with open(os.path.join(LANES_DIR, f"rank{r}.{name}"), "wb") as f:
+            f.write(res[key])
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    print(json.dumps(dict(rank=r, device=str(dev), bytes=len(x),
+                          stream=len(res["encode"]),
+                          encode=res["encode_stat"],
+                          decode=res["decode_stat"])), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1043,7 +1252,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
     kind = torch.cuda.get_device_name(0)
     dev = torch.device("cuda", 0)
     t0 = phase("card", t0, f"torch {torch.__version__} cuda "
@@ -1067,14 +1277,7 @@ def main() -> int:
     # ---- 4. the main path at full size
     from libzling_tpu_torch.native import engine
 
-    sys.path.insert(0, os.path.join(REPO, "tools"))
-    from make_corpus import make_corpus
-
-    data = bytearray(make_corpus(32 * MiB))
-    rng = np.random.default_rng(20261016)
-    mid = len(data) // 2 - MiB // 2
-    data[mid:mid + MiB] = rng.integers(0, 256, MiB, dtype=np.uint8).tobytes()
-    data = bytes(data)
+    data = corpus(32 * MiB)
     t0 = phase("corpus", t0, f"{len(data)} bytes")
 
     kernels = {"tokenize": tkk.tokenize, "relabel": rlk.relabel,
@@ -1167,6 +1370,11 @@ def main() -> int:
             for r in rows_m]), flush=True)
     t0 = phase("probes: measured", t0, json.dumps(probe_launches))
 
+    # ---- 7. the lanes over two device entries and two processes
+    lanes = check_lanes(drive, launches, engine, data, streams[0],
+                        data[:20 * MiB], streams[4], corrupt, card)
+    t0 = phase("lanes", t0, json.dumps(lanes))
+
     assert "jax" not in sys.modules
     csrc = "libzling_tpu_torch/csrc/"
     info = {
@@ -1224,4 +1432,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lanes-worker"]:
+        sys.exit(lanes_worker(*sys.argv[2:4]))
     sys.exit(main())

@@ -194,3 +194,23 @@ def stream_ptr(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_devices(name: str, dev, direct=(), copied=()) -> None:
+    """Raise ValueError unless a kernel's tensors lie on its device ``dev``.
+
+    ``direct``: tensors whose pointers go to the kernel, which must be on
+    ``dev`` itself; ``copied``: host metadata the wrapper moves to ``dev``,
+    on ``dev`` or on the host.  A tensor on another GPU raises either way.
+    The wrappers launch inside ``torch.cuda.device(dev)``: the C entry
+    points set kernel attributes and launch on the runtime's current
+    device, which must be the device of the tensors and of the stream.
+    """
+    for t in direct:
+        if t.device != dev:
+            raise ValueError(f"{name}: a tensor on {t.device}, the kernel "
+                             f"runs on {dev}")
+    for t in copied:
+        if t.device.type != "cpu" and t.device != dev:
+            raise ValueError(f"{name}: a tensor on {t.device}, the kernel "
+                             f"runs on {dev}")

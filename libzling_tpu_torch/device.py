@@ -2,9 +2,11 @@
 
 Counterpart of ``libzling_tpu/device.py`` (``encode``, ``decode``).
 
-  encode: ``group_encode.encode_groups`` -- K4 tokenize, K5 relabel, torch
-      Huffman stages, host length tables and framing -- at the canonical
-      16 MiB / 262,144-token geometry by default;
+  encode: ``parallel/mesh.py::mesh_encode`` over this one device, up to
+      ``GROUP_BLOCKS`` blocks a group (``group_encode.Part``'s stages: K4
+      tokenize, K5 relabel, torch Huffman stages, host length tables and
+      framing) -- at the canonical 16 MiB / 262,144-token geometry by
+      default;
   decode: host parse (``container.parse``, ``unpack_length_tables``), then
       either the fused kernel K3 (the default), which writes every block's
       bytes at its offset in one u8 tensor, or (``fused=False``) the split
@@ -19,8 +21,9 @@ import torch
 
 from .tables import BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ
 from . import group_decode
-from .group_encode import encode_groups
+from .group_encode import GROUP_BLOCKS
 from .ops import decode_fused as fk
+from .parallel.mesh import mesh_encode
 
 
 def resolve_device(device) -> torch.device:
@@ -38,8 +41,9 @@ def encode(data: bytes, level: int = 0, device="cuda",
            max_tokens: int = BLOCK_SIZE_ROLZ) -> bytes:
     """Encode on ``device``; byte-identical to ``spec.encode`` at the same
     geometry (the canonical stream by default)."""
-    return encode_groups(bytes(data), level, resolve_device(device),
-                         block_size=block_size, max_tokens=max_tokens)
+    return mesh_encode(data, level, [resolve_device(device)],
+                       block_size=block_size, max_tokens=max_tokens,
+                       blocks_per_device=GROUP_BLOCKS)
 
 
 def decode_args(data: bytes, device):

@@ -1,38 +1,32 @@
-"""Split decode on one device, a group of blocks at a time.
+"""Split decode, a group of blocks at a time: the stream's host parse.
 
-Counterpart of the one-device subset of
-``libzling_tpu/parallel/decode_mesh.py::mesh_decode``, and of the split
+Counterpart of the host side of
+``libzling_tpu/parallel/decode_mesh.py::mesh_decode`` and of the split
 layout of ``libzling_tpu/device.py::decode(fused=False)``, which is the
-case of one group holding every block.  Per group of ``group_blocks``
-whole blocks:
+case of one group holding every block.  ``parse`` reads a stream's chunk
+fields on the host; ``Stream.stage_split`` and ``Stream.resolve_args``
+stage K1's and K2's inputs for a chunk range on a device without
+blocking.  The group loop itself is ``parallel/decode_mesh.py``'s:
+``decode_groups`` is its one-device case --
 
   [host]   pack only the group's payload words; put them and the group's
            code lengths on the device without blocking;
   [device] torch table build, then K1 decodes every chunk of the group to
-           tokens (one CTA per chunk);
+           tokens;
   [device] K2 resolves the group's tokens to bytes, starting from the
-           previous group's exit MTF table, which stays on the device.
+           previous group's exit MTF table, which stays on the device;
 
-The host does not wait for the device inside the loop: statuses and bytes
-are fetched and checked once at the end, group by group, as the JAX
-function does.  Not ported, because they serve jit-shape stability or
-belong to the lanes over several GPUs: the padding to ``Cp`` chunks and
-uniform word and row counts, ``shard_map``, the cross-device gather and the
-multi-process replication.
+and the host fetches and checks statuses and bytes once at the end.
 """
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from . import container
 from .ops import entropy_kernel as ek
-from .ops import mtf as mops
-from .ops import resolve_kernel as rk
 
 
 class Stream(NamedTuple):
@@ -59,18 +53,26 @@ class Stream(NamedTuple):
         Returns (the argument tuple of ``decode_chunks``, the arguments of
         ``resolve_stream`` after ``tokens`` and before ``mtf0``).
         """
-        k1 = ek.stage_chunks(self.len1[c0:c1], self.len2[c0:c1],
-                             self.bodies[c0:c1], self.rlens[c0:c1], device)
+        return (ek.stage_chunks(self.len1[c0:c1], self.len2[c0:c1],
+                                self.bodies[c0:c1], self.rlens[c0:c1],
+                                device),
+                self.resolve_args(c0, c1, device))
+
+    def resolve_args(self, c0: int, c1: int, device):
+        """The arguments of ``resolve_stream`` after ``tokens`` and before
+        ``mtf0`` for chunks [c0, c1), whose tokens lie flat in chunk order
+        (however many K1 calls decoded them)."""
+        rl = self.rlens[c0:c1]
         first = self.block_base[self.block_id[c0]]
         base = self.block_base[self.block_id[c0:c1]] - first
-        k2 = (k1[5],) + tuple(
+        size = int(self.block_base[self.block_id[c1 - 1] + 1] - first)
+        return tuple(
             ek.host_to(np.asarray(a, dt), device)
-            for a, dt in ((self.rlens[c0:c1], np.int32),
+            for a, dt in ((np.cumsum(rl) - rl, np.int64),
+                          (rl, np.int32),
                           (self.encpos[c0:c1], np.int32),
                           (self.new_block[c0:c1], np.int32),
-                          (base, np.int64)))
-        size = int(self.block_base[self.block_id[c1 - 1] + 1] - first)
-        return k1, k2 + (size,)
+                          (base, np.int64))) + (size,)
 
 
 def parse(data: bytes) -> Stream | None:
@@ -92,62 +94,9 @@ def decode_groups(data: bytes, device="cuda", group_blocks: int | None = 1,
     """Decode a zling stream on ``device``, ``group_blocks`` blocks at a time
     (None: every block in one group); raises ValueError if it is corrupt.
 
-    stage_probe: optional dict that receives the wall times ``entropy_s``
-    (staging, table build and K1) and ``resolve_s`` (K2), summed over the
-    groups, with the device synchronised after each stage -- a measurement
-    mode that serialises the host and the device.
+    The one-device case of ``parallel/decode_mesh.py::mesh_decode``;
+    ``stage_probe`` as there.
     """
-    from .device import resolve_device
+    from .parallel.decode_mesh import mesh_decode
 
-    dev = resolve_device(device)
-    if group_blocks is not None and group_blocks < 1:
-        raise ValueError("group_blocks must be >= 1")
-    data = bytes(data)
-    s = parse(data) if data else None
-    if s is None:
-        return b""
-    pending = launch_groups(s, dev, group_blocks, mops.initial_table(dev),
-                            stage_probe)
-    parts = []
-    for estatus, rstatus, out, rlens in pending:
-        est = estatus.cpu().numpy()
-        if est[:, 2].any() or (est[:, 0] != rlens).any():
-            raise ValueError("zling: corrupt stream (huffman)")
-        if rstatus.cpu().numpy()[:, 2].any():
-            raise ValueError("zling: corrupt stream (resolve)")
-        parts.append(out.cpu().numpy().tobytes())
-    return b"".join(parts)
-
-
-def launch_groups(s: Stream, dev: torch.device, group_blocks: int | None,
-                  mtf0: torch.Tensor, stage_probe: dict | None = None):
-    """Stage and launch K1 and K2 for every group of ``s``, the MTF table
-    carried from one group's K2 to the next on the device.  Without
-    ``stage_probe`` the host never waits for the device here.  Returns per
-    group (K1 status, K2 status, bytes, token counts), not yet fetched."""
-    n_blocks = len(s.block_base) - 1
-    step = group_blocks or n_blocks
-    mtf = mtf0
-
-    def mark(key: str, t0: float) -> float:
-        if stage_probe is None:
-            return t0
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        now = time.perf_counter()
-        stage_probe[key] = stage_probe.get(key, 0.0) + now - t0
-        return now
-
-    pending = []
-    for b0 in range(0, n_blocks, step):
-        c0, c1 = s.chunks_of(b0, min(b0 + step, n_blocks))
-        if c0 == c1:
-            continue                      # no chunks: empty blocks only
-        t0 = time.perf_counter()
-        k1, k2 = s.stage_split(c0, c1, dev)
-        tokens, estatus = ek.decode_chunks(*k1)
-        t0 = mark("entropy_s", t0)
-        out, rstatus, mtf = rk.resolve_stream(tokens, *k2, mtf)
-        mark("resolve_s", t0)
-        pending.append((estatus, rstatus, out, s.rlens[c0:c1]))
-    return pending
+    return mesh_decode(data, [device], group_blocks, stage_probe)

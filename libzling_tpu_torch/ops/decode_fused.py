@@ -86,17 +86,21 @@ def fused_decode(meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base,
             raise ValueError("fused_decode: int32 contiguous tables expected")
     if mtf0.dtype != torch.uint8 or mtf0.shape != (256, 256):
         raise ValueError("fused_decode: mtf0 must be u8 [256, 256]")
-    mtfnext = mtfnext.to(torch.int32).contiguous()
-    out_base = out_base.to(torch.int64).contiguous()
-    mtf0 = mtf0.contiguous().clone()          # 16-byte aligned copy
-    out = torch.zeros(max(out_size, 1), dtype=torch.uint8, device=meta.device)
-    ring = torch.empty(256 * RING, dtype=torch.int32, device=meta.device)
-    status = torch.empty((C, 4), dtype=torch.int32, device=meta.device)
-    err = _build.lib().zlt_decode_fused(
-        meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(), lut2.data_ptr(),
-        mtf0.data_ptr(), mtfnext.data_ptr(), words.data_ptr(),
-        out_base.data_ptr(), C, out.data_ptr(), ring.data_ptr(),
-        status.data_ptr(), _build.stream_ptr(meta))
+    dev = meta.device
+    _build.check_devices("fused_decode", dev, direct=args + (mtf0,),
+                         copied=(mtfnext, out_base))
+    with torch.cuda.device(dev):
+        mtfnext = mtfnext.to(dev, torch.int32).contiguous()
+        out_base = out_base.to(dev, torch.int64).contiguous()
+        mtf0 = mtf0.contiguous().clone()          # 16-byte aligned copy
+        out = torch.zeros(max(out_size, 1), dtype=torch.uint8, device=dev)
+        ring = torch.empty(256 * RING, dtype=torch.int32, device=dev)
+        status = torch.empty((C, 4), dtype=torch.int32, device=dev)
+        err = _build.lib().zlt_decode_fused(
+            meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(),
+            lut2.data_ptr(), mtf0.data_ptr(), mtfnext.data_ptr(),
+            words.data_ptr(), out_base.data_ptr(), C, out.data_ptr(),
+            ring.data_ptr(), status.data_ptr(), _build.stream_ptr(meta))
     _build.check(err, "zlt_decode_fused")
     fused_decode.launches += 1
     return out[:out_size], status

@@ -242,22 +242,28 @@ def decode_chunks(meta, order1, lut1, lut2, words, tok_off, n_tokens: int):
     C = meta.shape[0]
     if tok_off.shape != (C,):
         raise ValueError("decode_chunks: one token offset per chunk expected")
-    tok_off = tok_off.to(torch.int64).contiguous()
-    tokens = torch.zeros(max(n_tokens, 1), dtype=torch.int32,
-                         device=meta.device)
-    status = torch.zeros((C, 3), dtype=torch.int32, device=meta.device)
-    if C:
-        lib = _build.lib()
-        scratch = torch.empty(
-            lib.zlt_entropy_decode_scratch(C, words.numel()),
-            dtype=torch.int32, device=meta.device)
-        err = lib.zlt_entropy_decode(
-            meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(),
-            lut2.data_ptr(), words.data_ptr(), words.numel(),
-            tok_off.data_ptr(), C, scratch.data_ptr(), tokens.data_ptr(),
-            status.data_ptr(), _build.stream_ptr(meta))
-        _build.check(err, "zlt_entropy_decode")
-        decode_chunks.launches += 1
+    dev = meta.device
+    _build.check_devices("decode_chunks", dev,
+                         direct=(meta, order1, lut1, lut2, words),
+                         copied=(tok_off,))
+    with torch.cuda.device(dev):
+        tok_off = tok_off.to(dev, torch.int64).contiguous()
+        tokens = torch.zeros(max(n_tokens, 1), dtype=torch.int32,
+                             device=dev)
+        status = torch.zeros((C, 3), dtype=torch.int32, device=dev)
+        if C:
+            lib = _build.lib()
+            scratch = torch.empty(
+                lib.zlt_entropy_decode_scratch(C, words.numel()),
+                dtype=torch.int32, device=dev)
+            err = lib.zlt_entropy_decode(
+                meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(),
+                lut2.data_ptr(), words.data_ptr(), words.numel(),
+                tok_off.data_ptr(), C, scratch.data_ptr(),
+                tokens.data_ptr(), status.data_ptr(),
+                _build.stream_ptr(meta))
+            _build.check(err, "zlt_entropy_decode")
+            decode_chunks.launches += 1
     return tokens[:n_tokens], status
 
 

@@ -55,16 +55,19 @@ def relabel(units, unit_off, unit_cnt, state, mtfnext):
         raise ValueError("relabel: units must be contiguous i32")
     if state.dtype != torch.uint8 or state.shape != (2, 256, 256):
         raise ValueError("relabel: state must be u8 [2, 256, 256]")
-    unit_off = unit_off.to(dev, torch.int64).contiguous()
-    unit_cnt = unit_cnt.to(dev, torch.int32).contiguous()
-    state = state.contiguous().clone()        # 16-byte aligned copy
-    mtfnext = mtfnext.to(dev, torch.int32).contiguous()
-    out = units.clone()
-    state_out = torch.empty_like(state)
-    err = _build.lib().zlt_relabel(
-        units.data_ptr(), unit_off.data_ptr(), unit_cnt.data_ptr(),
-        unit_off.shape[0], state.data_ptr(), mtfnext.data_ptr(),
-        out.data_ptr(), state_out.data_ptr(), _build.stream_ptr(units))
+    _build.check_devices("relabel", dev, direct=(state,),
+                         copied=(unit_off, unit_cnt, mtfnext))
+    with torch.cuda.device(dev):
+        unit_off = unit_off.to(dev, torch.int64).contiguous()
+        unit_cnt = unit_cnt.to(dev, torch.int32).contiguous()
+        state = state.contiguous().clone()        # 16-byte aligned copy
+        mtfnext = mtfnext.to(dev, torch.int32).contiguous()
+        out = units.clone()
+        state_out = torch.empty_like(state)
+        err = _build.lib().zlt_relabel(
+            units.data_ptr(), unit_off.data_ptr(), unit_cnt.data_ptr(),
+            unit_off.shape[0], state.data_ptr(), mtfnext.data_ptr(),
+            out.data_ptr(), state_out.data_ptr(), _build.stream_ptr(units))
     _build.check(err, "zlt_relabel")
     relabel.launches += 1
     return out, state_out

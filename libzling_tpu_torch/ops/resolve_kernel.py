@@ -97,20 +97,24 @@ def resolve_stream(tokens, tok_off, rlens, encpos, new_block, out_base,
     for a in (tok_off, encpos, new_block, out_base):
         if a.shape != (C,):
             raise ValueError("resolve_stream: one value per chunk expected")
-    i32 = [a.to(dev, torch.int32).contiguous()
-           for a in (rlens, encpos, new_block)]
-    i64 = [a.to(dev, torch.int64).contiguous() for a in (tok_off, out_base)]
-    mtf0 = mtf0.contiguous().clone()          # 16-byte aligned copy
-    out = torch.zeros(max(out_size, 1), dtype=torch.uint8, device=dev)
-    ring = torch.zeros(256 * RING, dtype=torch.int32, device=dev)
-    status = torch.empty((C, 4), dtype=torch.int32, device=dev)
-    mtf_out = torch.empty((256, 256), dtype=torch.uint8, device=dev)
-    err = _build.lib().zlt_resolve(
-        tokens.data_ptr(), i64[0].data_ptr(), i32[0].data_ptr(),
-        i32[1].data_ptr(), i32[2].data_ptr(), i64[1].data_ptr(),
-        mtf0.data_ptr(), _mtf_next(dev).data_ptr(), C, out.data_ptr(),
-        ring.data_ptr(), status.data_ptr(), mtf_out.data_ptr(),
-        _build.stream_ptr(tokens))
+    _build.check_devices("resolve_stream", dev, direct=(mtf0,),
+                         copied=(tok_off, rlens, encpos, new_block, out_base))
+    with torch.cuda.device(dev):
+        i32 = [a.to(dev, torch.int32).contiguous()
+               for a in (rlens, encpos, new_block)]
+        i64 = [a.to(dev, torch.int64).contiguous()
+               for a in (tok_off, out_base)]
+        mtf0 = mtf0.contiguous().clone()          # 16-byte aligned copy
+        out = torch.zeros(max(out_size, 1), dtype=torch.uint8, device=dev)
+        ring = torch.zeros(256 * RING, dtype=torch.int32, device=dev)
+        status = torch.empty((C, 4), dtype=torch.int32, device=dev)
+        mtf_out = torch.empty((256, 256), dtype=torch.uint8, device=dev)
+        err = _build.lib().zlt_resolve(
+            tokens.data_ptr(), i64[0].data_ptr(), i32[0].data_ptr(),
+            i32[1].data_ptr(), i32[2].data_ptr(), i64[1].data_ptr(),
+            mtf0.data_ptr(), _mtf_next(dev).data_ptr(), C, out.data_ptr(),
+            ring.data_ptr(), status.data_ptr(), mtf_out.data_ptr(),
+            _build.stream_ptr(tokens))
     _build.check(err, "zlt_resolve")
     resolve_stream.launches += 1
     return out[:out_size], status, mtf_out

@@ -52,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .entropy_kernel import host_to
 from ..tables import (
     LEVEL_PARAMS,
     MATCH_MAX_LEN,
@@ -68,9 +69,9 @@ assert LEVEL_TABLE[:, 1:].max() <= MAX_LAZY
 
 
 def level_params(levels, device) -> torch.Tensor:
-    """Per-chunk level ids [..., max_chunks] -> (depth, lazy1, lazy2) i32."""
-    return torch.as_tensor(LEVEL_TABLE[np.asarray(levels, np.int64)],
-                           device=device)
+    """Per-chunk level ids [..., max_chunks] -> (depth, lazy1, lazy2) i32,
+    put on ``device`` without blocking."""
+    return host_to(LEVEL_TABLE[np.asarray(levels, np.int64)], device)
 
 
 def tokenize(buf, block_off, block_len, unit_off, params, max_tokens: int,
@@ -101,24 +102,30 @@ def tokenize(buf, block_off, block_len, unit_off, params, max_tokens: int,
     if (params.device.type == "cpu" and params.numel()
             and int(params[..., 1:].max()) > MAX_LAZY):
         raise ValueError(f"tokenize: lazy depth above {MAX_LAZY}")
-    block_off = block_off.to(dev, torch.int64).contiguous()
-    unit_off = unit_off.to(dev, torch.int64).contiguous()
-    block_len = block_len.to(dev, torch.int32).contiguous()
-    params = params.to(dev, torch.int32).contiguous()
-    hash_ = torch.full((B, 256 * HASH), -1, dtype=torch.int16, device=dev)
-    suffix = torch.full((B, 256 * RING), -1, dtype=torch.int16, device=dev)
-    offset = torch.zeros((B, 256 * RING), dtype=torch.int32, device=dev)
-    units = torch.zeros(n_units, dtype=torch.int32, device=dev)
-    upos = torch.zeros(n_units, dtype=torch.int32, device=dev)
-    chunk_stat = torch.zeros((B, max_chunks, 3), dtype=torch.int32,
-                             device=dev)
-    block_stat = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-    err = _build.lib().zlt_tokenize(
-        buf.data_ptr(), block_off.data_ptr(), block_len.data_ptr(),
-        unit_off.data_ptr(), params.data_ptr(), B, max_chunks, max_tokens,
-        hash_.data_ptr(), suffix.data_ptr(), offset.data_ptr(),
-        units.data_ptr(), upos.data_ptr(), chunk_stat.data_ptr(),
-        block_stat.data_ptr(), _build.stream_ptr(buf))
+    _build.check_devices("tokenize", dev,
+                         copied=(block_off, block_len, unit_off, params))
+    with torch.cuda.device(dev):
+        block_off = block_off.to(dev, torch.int64).contiguous()
+        unit_off = unit_off.to(dev, torch.int64).contiguous()
+        block_len = block_len.to(dev, torch.int32).contiguous()
+        params = params.to(dev, torch.int32).contiguous()
+        hash_ = torch.full((B, 256 * HASH), -1, dtype=torch.int16,
+                           device=dev)
+        suffix = torch.full((B, 256 * RING), -1, dtype=torch.int16,
+                            device=dev)
+        offset = torch.zeros((B, 256 * RING), dtype=torch.int32, device=dev)
+        units = torch.zeros(n_units, dtype=torch.int32, device=dev)
+        upos = torch.zeros(n_units, dtype=torch.int32, device=dev)
+        chunk_stat = torch.zeros((B, max_chunks, 3), dtype=torch.int32,
+                                 device=dev)
+        block_stat = torch.zeros((B, 2), dtype=torch.int32, device=dev)
+        err = _build.lib().zlt_tokenize(
+            buf.data_ptr(), block_off.data_ptr(), block_len.data_ptr(),
+            unit_off.data_ptr(), params.data_ptr(), B, max_chunks,
+            max_tokens, hash_.data_ptr(), suffix.data_ptr(),
+            offset.data_ptr(), units.data_ptr(), upos.data_ptr(),
+            chunk_stat.data_ptr(), block_stat.data_ptr(),
+            _build.stream_ptr(buf))
     _build.check(err, "zlt_tokenize")
     tokenize.launches += 1
     return units, upos, chunk_stat, block_stat

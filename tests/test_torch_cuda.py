@@ -26,6 +26,7 @@ from libzling_tpu_torch import device as tdevice
 from libzling_tpu_torch import group_decode as tgd
 from libzling_tpu_torch.group_encode import GROUP_BLOCKS
 from libzling_tpu_torch.ops import decode_fused as tfk
+from libzling_tpu_torch.parallel import decode_mesh, mesh
 from libzling_tpu_torch.ops import entropy_kernel as tek
 from libzling_tpu_torch.ops import mtf as tmtf
 from libzling_tpu_torch.ops import relabel_kernel as trk
@@ -226,7 +227,8 @@ def test_group_loop_does_not_wait_for_the_card(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pending = tgd.launch_groups(s, cuda, 1, mtf0)
+        pending = decode_mesh.launch_lanes(
+            s, mesh.Lanes(mesh.make_mesh([cuda])), 1, mtf0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert len(pending) == len(s.block_base) - 1
@@ -411,3 +413,91 @@ def test_k1_overlapping_chunks_are_bad(cuda):
     torch.cuda.synchronize()
     assert status.cpu().tolist() == [[0, 0, 1]] * 3
     assert not tokens.cpu().any()
+
+
+# ---- the lanes over several device entries, and the launch device
+
+def _two_gpus():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA GPUs")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+def _lane_data() -> bytes:
+    # three groups of 2 x 2048 bytes, random bytes ending the first: the
+    # look-ahead is queued, then re-dispatched from a carried level drop
+    rng = np.random.default_rng(31)
+    text = _data(31)
+    return text[:3600] + bytes(rng.integers(0, 256, 500, np.uint8)) \
+        + text[3600:] + text[:4000]
+
+
+@pytest.mark.parametrize("level,redispatch", [(0, 0), (4, 1)])
+def test_lanes_over_one_card_twice(cuda, level, redispatch):
+    from libzling_tpu_torch.parallel import mesh_decode, mesh_encode
+    from libzling_tpu_torch.utils import metrics
+
+    data = _lane_data()
+    devs = [torch.device("cuda", 0)] * 2
+    metrics.registry.reset()
+    ttk.tokenize.launches = trk.relabel.launches = 0
+    stream = mesh_encode(data, level, devs, **GEOM)
+    assert stream == spec.encode(data, level, **GEOM)
+    # five blocks: three groups, one K4 and one K5 a run at least (e0
+    # never drops below its level, e4 does once at the first group's end)
+    assert ttk.tokenize.launches >= 5 and trk.relabel.launches >= 5
+    assert metrics.registry.snapshot()["counters"].get(
+        "enc.pipeline_redispatch", 0) == redispatch
+    tek.decode_chunks.launches = tresk.resolve_stream.launches = 0
+    assert mesh_decode(stream, devs, group_blocks=1) == data
+    # a block a group: K1 on each entry that holds a chunk, K2 once
+    s = tgd.parse(stream)
+    nch = np.bincount(s.block_id)
+    assert tek.decode_chunks.launches == int(np.minimum(nch, 2).sum())
+    assert tresk.resolve_stream.launches == len(nch)
+
+
+def test_kernel_rejects_a_tensor_on_another_device(cuda):
+    units = torch.zeros(8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        trk.relabel(units, torch.zeros(1, dtype=torch.int64),
+                    torch.ones(1, dtype=torch.int32),
+                    tmtf.initial_state("cpu"), tmtf.mtf_next("cpu"))
+
+
+def test_kernels_on_the_second_gpu():
+    # each kernel on cuda:1 while the current device is 0: the launch must
+    # land on the device of its tensors
+    _, dev1 = _two_gpus()
+    torch.cuda.set_device(0)
+    buf, args = _tokenize_args(_data(), 4)
+    want = ttk.tokenize_plain(buf, *args)
+    got = ttk.tokenize(buf.to(dev1), *args)
+    for g, w in zip(got, want):
+        assert g.device == dev1 and torch.equal(g.cpu(), w)
+    rargs = (want[0], args[0], want[2][:, :, 0].sum(1),
+             tmtf.initial_state("cpu"), tmtf.mtf_next("cpu"))
+    rwant = trk.relabel_plain(*rargs)
+    rgot = trk.relabel(*_on(rargs, dev1))
+    for g, w in zip(rgot, rwant):
+        assert torch.equal(g.cpu(), w)
+    stream = spec.encode(_data(), 2, **GEOM)
+    fargs, size, _ = tdevice.decode_args(stream, "cpu")
+    fwant = tfk.fused_decode_plain(*fargs, out_size=size)
+    fgot = tfk.fused_decode(*_on(fargs, dev1), out_size=size)
+    for g, w in zip(fgot, fwant):
+        assert torch.equal(g.cpu(), w)
+    s = tgd.parse(stream)
+    _split_equal(dev1, s, 0, len(s.rlens), tmtf.initial_table("cpu"))
+    assert torch.cuda.current_device() == 0
+
+
+def test_lanes_over_two_gpus():
+    from libzling_tpu_torch.parallel import mesh_decode, mesh_encode
+
+    devs = list(_two_gpus())
+    data = _lane_data()
+    for bpd in (1, 2):
+        stream = mesh_encode(data, 4, devs, blocks_per_device=bpd, **GEOM)
+        assert stream == spec.encode(data, 4, **GEOM)
+        assert mesh_decode(stream, devs, group_blocks=2) == data

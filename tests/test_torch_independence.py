@@ -8,6 +8,7 @@ and bytes.
 
 from __future__ import annotations
 
+import json
 import pathlib
 import subprocess
 import sys
@@ -54,6 +55,29 @@ print(len([k for k in sys.modules if k.startswith("libzling_tpu_torch.")]),
                        text=True, check=True, timeout=300, cwd=REPO)
     n, bad = r.stdout.split(" ", 1)
     assert int(n) > 10 and bad.strip() == "[]", r.stdout
+
+
+@pytest.mark.parametrize("pkg,modules", [
+    ("parallel", {"mesh", "decode_mesh", "distributed"}),
+    ("utils", {"metrics"}),
+])
+def test_lanes_and_utils_load_no_jax_package(pkg, modules):
+    # each module of the subpackage imported alone, in a fresh interpreter
+    code = f"""
+import importlib, json, pkgutil, sys
+import libzling_tpu_torch.{pkg} as p
+names = sorted(m.name for m in pkgutil.iter_modules(p.__path__))
+bad = set()
+for n in names:
+    importlib.import_module("libzling_tpu_torch.{pkg}." + n)
+    bad |= {{k for k in sys.modules if k == "jax" or k.startswith("jax.")
+            or k == "libzling_tpu" or k.startswith("libzling_tpu.")}}
+print(json.dumps([names, sorted(bad)]))
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, check=True, timeout=300, cwd=REPO)
+    names, bad = json.loads(r.stdout)
+    assert set(names) == modules and bad == [], r.stdout
 
 
 @pytest.mark.parametrize("name", COPIED)

@@ -68,7 +68,7 @@ def test_decode_groups_matches_mesh_decode(gb):
     probe = {}
     assert zt.decode_groups(stream, "cpu", group_blocks=gb,
                             stage_probe=probe) == want
-    assert set(probe) == {"entropy_s", "resolve_s"}
+    assert set(probe) == {"entropy_s", "gather_s", "resolve_s"}
 
 
 def test_leading_empty_block():
