@@ -72,7 +72,19 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      a GPU or both on the card, the kernels built by this process first,
      a time limit on both): both ranks' streams equal the engine's and
      both decodes the input.  One ``[lanes ...]`` line each, with its
-     times, MB/s and launches beside the card's name and power limit.
+     times, MB/s and launches beside the card's name and power limit;
+  8. the CLI and the streamed file layer (``check_stream``): ``python -m
+     libzling_tpu_torch e0 --checksum`` of the 32 MiB corpus (the
+     engine's stream, zlib's adler32) and ``d`` back, ``e4`` through
+     stdin/stdout on 4 MiB; ``stream_encode`` one block a group over the
+     48 MiB corpus (3 groups: group edges and the look-ahead) and over its
+     two 2-group windows, each the engine's stream, the 3-group device
+     memory peak at most 1.1x the larger window's (O(group));
+     ``stream_decode`` one block a span back;
+     the resumable encode and decode stopped after their first checkpoint
+     and resumed; the CLI's ``d`` on corrupt input (exit 1, ``error:``).
+     One ``[stream ...]`` line each, with its seconds and MB/s beside the
+     card's name and power limit.
 
 A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K1 and K2 per
 token -- K1 also at e4 and per chunk kind --, K5 per literal of its
@@ -84,7 +96,8 @@ move over 3.35 TB/s) -- and for each probe row its launches in phase 6,
 its largest error, its bound, and per variant its time and cycles a step
 at the full loop count and its plain version's time at ``plain_n`` steps;
 the last line is ``{"ok": true, "device": {...}}``.  Launches in the
-kernels line sum the drives of phases 4 and 7 (the lane workers' too).
+kernels line sum the in-process drives of phases 4, 7 and 8 (and the
+lane workers').
 The script needs one CUDA device and imports no JAX.
 """
 
@@ -1078,7 +1091,8 @@ def lane_devices() -> list:
 
 
 def check_lanes(drive, launches: dict, engine, x32: bytes, s32: bytes,
-                x20: bytes, s20: bytes, corrupt: dict, card: str) -> dict:
+                x20: bytes, s20: bytes, x48: bytes, s48: bytes,
+                corrupt: dict, card: str) -> dict:
     """Phase 7: the lanes.  ``mesh_encode`` over two device entries (one
     block a device) on a 48 MiB e0 corpus (three blocks: the MTF chain
     crosses a device edge and a group edge, and the look-ahead runs) and
@@ -1094,8 +1108,6 @@ def check_lanes(drive, launches: dict, engine, x32: bytes, s32: bytes,
     from libzling_tpu_torch.utils import metrics
 
     devs = lane_devices()
-    x48 = corpus(48 * MiB)
-    s48 = engine.encode(x48, 0)
     assert z.encode(x48, 0) == s48, "e0 48 MiB: encode != engine"
     split = ("entropy_decode", "resolve")
     lanes = {}
@@ -1184,6 +1196,178 @@ def check_lanes(drive, launches: dict, engine, x32: bytes, s32: bytes,
         card=card, ranks=2, backend="gloo", bytes=len(x32), wall_s=sec,
         same_stream_on_both_ranks=True)), flush=True)
     return lanes
+
+
+STREAM_DIR = os.path.join(REPO, "build", "stream")
+CLI_S = 300            # one CLI process of phase 8, at most
+
+
+class _Interrupt(Exception):
+    """Phase 8's stand-in for a job killed after its first checkpoint."""
+
+
+def cli(*args, stdin: bytes | None = None):
+    """``python -m libzling_tpu_torch`` with ``args``; returns (the
+    completed process, its seconds)."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "libzling_tpu_torch", *args],
+                       input=stdin, capture_output=True, cwd=REPO,
+                       timeout=CLI_S)
+    return r, time.perf_counter() - t
+
+
+def adler_line(stderr: bytes) -> str:
+    return [ln for ln in stderr.decode().splitlines()
+            if ln.startswith("adler32:")][-1]
+
+
+def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
+                 s48: bytes, card: str) -> dict:
+    """Phase 8: the CLI and the streamed file layer on the card.
+
+    ``python -m libzling_tpu_torch e0 --checksum`` of the 32 MiB corpus
+    (its stream the engine's, its adler32 zlib's) and ``d`` back; ``e4``
+    through stdin/stdout on 4 MiB of it; ``stream_encode`` with one block
+    a group over the 48 MiB corpus (three groups: group edges and the
+    look-ahead) and over its two windows of two groups (blocks 0-1, 1-2),
+    each equal to the engine's stream, with the device memory peak of
+    each (the 3-group peak at most 1.1x the larger window's: memory is
+    O(group)), then ``stream_decode`` one block a span back;
+    ``encode_file_resumable`` / ``decode_file_resumable`` stopped after
+    their first checkpoint and resumed; the CLI's ``d`` on a truncated
+    stream and on a bad flag byte (exit 1, ``error:``, no traceback).
+    One ``[stream ...]`` line each, with its seconds and MB/s beside the
+    card's name and power limit.  Returns each in-process drive's
+    launches."""
+    import io as _io
+    import zlib
+
+    from libzling_tpu_torch.utils import checkpoint
+    from libzling_tpu_torch.utils import io as zio
+
+    os.makedirs(STREAM_DIR, exist_ok=True)
+    f = {k: os.path.join(STREAM_DIR, k)
+         for k in ("x32", "s32", "back", "ckpt", "rs32", "rback")}
+    for path in f.values():
+        if os.path.exists(path):
+            os.remove(path)
+    with open(f["x32"], "wb") as fh:
+        fh.write(x32)
+    out = {}
+
+    def line(name, n, sec, **kw):
+        print(f"[stream {name}] " + json.dumps(dict(
+            card=card, bytes=n, s=sec, MBps=n / sec / 1e6, **kw)),
+            flush=True)
+        if "launches" in kw:
+            out[name] = kw["launches"]
+
+    # 1. the CLI, file to file, e0 and back
+    want_adler = f"adler32: {zlib.adler32(x32):#010x}"
+    r, sec = cli("e0", f["x32"], f["s32"], "--checksum")
+    assert r.returncode == 0, r.stderr.decode()[-4000:]
+    with open(f["s32"], "rb") as fh:
+        assert fh.read() == s32, "CLI e0 32 MiB != engine"
+    assert adler_line(r.stderr) == want_adler, r.stderr.decode()[-400:]
+    line("cli e0 32 MiB", len(x32), sec, process=True)
+    r, sec = cli("d", f["s32"], f["back"], "--checksum")
+    assert r.returncode == 0, r.stderr.decode()[-4000:]
+    with open(f["back"], "rb") as fh:
+        assert fh.read() == x32, "CLI d 32 MiB round trip differs"
+    assert adler_line(r.stderr) == want_adler
+    line("cli d 32 MiB", len(x32), sec, process=True)
+
+    # 2. the CLI through stdin / stdout, e4 on 4 MiB
+    x4 = x32[:4 * MiB]
+    s4 = engine.encode(x4, 4)
+    r, sec = cli("e4", stdin=x4)
+    assert r.returncode == 0, r.stderr.decode()[-4000:]
+    assert r.stdout == s4, "CLI e4 4 MiB (stdin/stdout) != engine"
+    line("cli e4 4 MiB stdin/stdout", len(x4), sec, process=True)
+
+    # 3, 4. the streamed encode, one block a group.  A stream's peak is
+    # that of its heaviest window of two groups: a group's finish beside
+    # the next group's look-ahead, and the finish's buffers grow with the
+    # units a block holds (with its content: block 1 holds the random
+    # MiB).  So the 3-group peak is held to the larger of its two windows,
+    # blocks 0-1 and blocks 1-2, each run as a stream of its own; a peak
+    # that grew with the stream's length would exceed both
+    n2 = sum(n for _, n in zio._per_block_sizes(s48)[:2])
+    x12 = x48[16 * MiB:]
+    peaks = {}
+    for tag, x, want in (("blocks 0-1", x48[:32 * MiB], s48[:n2]),
+                         ("blocks 1-2", x12, engine.encode(x12, 0)),
+                         ("blocks 0-2", x48, s48)):
+        sink = _io.BytesIO()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, sec, n = drive(lambda: zio.stream_encode(
+            zio.FileSource(_io.BytesIO(x)), zio.FileSink(sink), 0,
+            blocks_per_device=1), ("tokenize", "relabel"))
+        peaks[tag] = torch.cuda.max_memory_allocated()
+        assert sink.getvalue() == want, f"stream_encode {tag} != engine"
+        line(f"stream_encode e0 48 MiB corpus, {tag}", len(x), sec,
+             launches=n, peak_bytes=peaks[tag])
+    window = max(peaks["blocks 0-1"], peaks["blocks 1-2"])
+    ratio = peaks["blocks 0-2"] / window
+    print("[stream memory] " + json.dumps(dict(
+        card=card, peak_bytes=peaks,
+        ratio_to_first_two_groups=peaks["blocks 0-2"] / peaks["blocks 0-1"],
+        ratio_to_heavier_window=ratio)), flush=True)
+    assert ratio <= 1.1, f"device memory grows with the stream: {ratio}"
+    sink = _io.BytesIO()
+    _, sec, n = drive(lambda: zio.stream_decode(
+        zio.FileSource(_io.BytesIO(s48)), zio.FileSink(sink),
+        group_blocks=1), ("entropy_decode", "resolve"))
+    assert sink.getvalue() == x48, "stream_decode 48 MiB differs"
+    line("stream_decode e0 48 MiB, 1 block a span", len(x48), sec,
+         launches=n)
+
+    # 5. resume after the first checkpoint, both directions
+    orig = checkpoint._write_ckpt
+
+    def stop_once(*a):
+        orig(*a)
+        checkpoint._write_ckpt = orig
+        raise _Interrupt
+
+    for name, run, want, path, n_bytes in (
+            ("encode", lambda: checkpoint.encode_file_resumable(
+                f["x32"], f["rs32"], 0, f["ckpt"], blocks_per_device=1),
+             s32, f["rs32"], len(x32)),
+            ("decode", lambda: checkpoint.decode_file_resumable(
+                f["rs32"], f["rback"], f["ckpt"], group_blocks=1),
+             x32, f["rback"], len(x32))):
+        checkpoint._write_ckpt = stop_once
+        t = time.perf_counter()
+        try:
+            run()
+            raise AssertionError(f"resumable {name} was not stopped")
+        except _Interrupt:
+            pass
+        finally:
+            checkpoint._write_ckpt = orig
+        assert os.path.exists(f["ckpt"]), f"{name}: no checkpoint"
+        run()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        assert not os.path.exists(f["ckpt"]), f"{name}: checkpoint kept"
+        with open(path, "rb") as fh:
+            assert fh.read() == want, f"resumed {name} differs"
+        line(f"resumable {name} e0 32 MiB, stopped and resumed", n_bytes,
+             sec)
+
+    # 6. corrupt input through the CLI
+    for name, bad in (("truncated", s4[:-5]),
+                      ("bad flag byte", b"\x02" + s4[1:])):
+        r, sec = cli("d", stdin=bad)
+        err = r.stderr.decode()
+        assert r.returncode == 1 and "error:" in err \
+            and "Traceback" not in err, f"CLI d {name}: {err[-2000:]}"
+        print(f"[stream cli d {name}] " + json.dumps(dict(
+            card=card, rc=r.returncode, s=sec,
+            error=err.strip().splitlines()[-1])), flush=True)
+    return out
 
 
 def lanes_worker(init: str, rank: str) -> int:
@@ -1371,9 +1555,15 @@ def main() -> int:
     t0 = phase("probes: measured", t0, json.dumps(probe_launches))
 
     # ---- 7. the lanes over two device entries and two processes
+    x48 = corpus(48 * MiB)
+    s48 = engine.encode(x48, 0)
     lanes = check_lanes(drive, launches, engine, data, streams[0],
-                        data[:20 * MiB], streams[4], corrupt, card)
+                        data[:20 * MiB], streams[4], x48, s48, corrupt, card)
     t0 = phase("lanes", t0, json.dumps(lanes))
+
+    # ---- 8. the CLI and the streamed file layer
+    streamed = check_stream(drive, engine, data, streams[0], x48, s48, card)
+    t0 = phase("stream", t0, json.dumps(streamed))
 
     assert "jax" not in sys.modules
     csrc = "libzling_tpu_torch/csrc/"

@@ -14,10 +14,20 @@ Public API:
     encode(data, level=0, device="cuda") -> bytes
     decode(data, device="cuda", fused=True) -> bytes
     decode_groups(data, device="cuda", group_blocks=1) -> bytes
-    encode_file(src, dst, level=0), decode_file(src, dst)
+    encode_file(src, dst, level=0), decode_file(src, dst)   # streaming
+    stream_encode(src, dst, level=0, devices=None, hooks=None)
+    stream_decode(src, dst, devices=None, hooks=None)
+
+Command line (``cli.py``; stdin/stdout by default, streaming a group of
+blocks at a time on every visible GPU):
+
+    python -m libzling_tpu_torch e0..e6|d [source [target]]
+        [--backend cuda|cpu|native] [--checksum]
 """
 
 from .api import decode, decode_file, encode, encode_file  # noqa: F401
 from .group_decode import decode_groups  # noqa: F401
+from .utils.io import stream_decode, stream_encode  # noqa: F401
 
-__all__ = ["encode", "decode", "decode_groups", "encode_file", "decode_file"]
+__all__ = ["encode", "decode", "decode_groups", "encode_file", "decode_file",
+           "stream_encode", "stream_decode"]

@@ -12,7 +12,9 @@ The port keeps the state as bytes:
 
 The conversion functions below turn the JAX package's states (given as
 numpy) into these layouts and back, so tests can start both packages from
-the same mid-stream state.
+the same mid-stream state; ``state_to_bytes`` / ``state_from_bytes`` /
+``table_to_bytes`` give the 131,072-byte layout of the native engine's
+``MtfState`` (rank2sym, then sym2rank) that checkpoints carry.
 """
 
 from __future__ import annotations
@@ -69,3 +71,31 @@ def table_to_fused(table: torch.Tensor) -> np.ndarray:
     out = np.zeros((1, FUSED_WORDS), np.int32)
     out[0, : 256 * 256] = table.cpu().numpy().reshape(-1)
     return out
+
+
+STATE_BYTES = 2 * 256 * 256
+
+
+def state_to_bytes(state: torch.Tensor) -> bytes:
+    """An encoder state as the native engine's ``MtfState`` (rank2sym, then
+    sym2rank; 131,072 bytes).  Waits for the device."""
+    return state.cpu().numpy().tobytes()
+
+
+def state_from_bytes(buf: bytes, device="cpu") -> torch.Tensor:
+    """``state_to_bytes``' bytes -> u8 [2, 256, 256] on ``device``."""
+    if len(buf) != STATE_BYTES:
+        raise ValueError(f"an MTF state is {STATE_BYTES} bytes, "
+                         f"not {len(buf)}")
+    st = np.frombuffer(buf, np.uint8).reshape(2, 256, 256)
+    return torch.as_tensor(st.copy(), device=device)
+
+
+def table_to_bytes(table: torch.Tensor) -> bytes:
+    """A decoder table in the same layout: the table (rank2sym), then its
+    inverse, which no decoder reads.  Waits for the device."""
+    t = table.cpu().numpy()
+    inv = np.empty_like(t)
+    np.put_along_axis(inv, t.astype(np.int64),
+                      np.tile(np.arange(256, dtype=np.uint8), (256, 1)), 1)
+    return t.tobytes() + inv.tobytes()

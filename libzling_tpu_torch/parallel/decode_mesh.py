@@ -17,8 +17,11 @@ are decoded bytes, the MTF table crosses blocks).  Per group of
 
 The host does not wait for the devices inside the loop: statuses and bytes
 are fetched and checked once at the end, and a corrupt stream raises
-``ValueError`` (decode_mesh.py:241-262).  Not ported, because they are TPU
-layout: the chunk-pair padding and the uniform ``Cp`` / ``W`` geometry.
+``ValueError`` (decode_mesh.py:241-262).  ``decode_spans`` runs the same
+launches a span of whole blocks at a time as spans arrive (from a file,
+``utils/io.py``), each span's exit MTF table carried to the next.  Not
+ported, because they are TPU layout: the chunk-pair padding and the
+uniform ``Cp`` / ``W`` geometry.
 ``distributed.distributed_decode`` runs this loop with one device a
 process, the tokens all-gathered and K2 replicated on every process.
 """
@@ -26,6 +29,7 @@ process, the tokens all-gathered and K2 replicated on every process.
 from __future__ import annotations
 
 import time
+from typing import Iterable, Iterator
 
 import torch
 
@@ -63,7 +67,35 @@ def decode_lanes(data: bytes, lanes: Lanes, group_blocks: int | None,
         return b""
     return collect(launch_lanes(s, lanes, group_blocks,
                                 mops.initial_table(lanes.resolve_device),
-                                stage_probe))
+                                stage_probe)[0])
+
+
+def decode_spans(spans: Iterable[bytes], lanes: Lanes,
+                 table: torch.Tensor | None = None
+                 ) -> Iterator[tuple[bytes, torch.Tensor]]:
+    """Decode a stream that arrives a span of whole blocks at a time (the
+    split path K1 -> K2, which returns its exit table).
+
+    Yields, for each span, its bytes and its exit MTF table (u8 [256,
+    256], still on ``lanes.resolve_device``).  ``table`` None is the
+    stream start; a table given from outside continues the stream it came
+    from.  Span s+1 is parsed and launched before span s's bytes are
+    fetched, so at most two spans are in flight.  Raises ValueError on a
+    corrupt span.
+    """
+    dev = lanes.resolve_device
+    table = mops.initial_table(dev) if table is None else table.to(dev)
+    prev = None
+    for span in spans:
+        s = gd.parse(bytes(span))
+        pending = []
+        if s is not None:
+            pending, table = launch_lanes(s, lanes, None, table)
+        if prev is not None:
+            yield collect(prev[0]), prev[1]
+        prev = pending, table
+    if prev is not None:
+        yield collect(prev[0]), prev[1]
 
 
 def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
@@ -72,7 +104,7 @@ def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
     device for every group of ``s``, the MTF table carried from one
     group's K2 to the next.  Without ``stage_probe`` the host never waits
     for a device here.  Returns per group (K1 status, K2 status, bytes,
-    token counts), not yet fetched."""
+    token counts), not yet fetched, and the exit MTF table."""
     n_blocks = len(s.block_base) - 1
     step = group_blocks or n_blocks
     D = lanes.count
@@ -111,7 +143,7 @@ def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
             tokens, *s.resolve_args(c0, c1, lanes.resolve_device), mtf)
         mark("resolve_s", t0)
         pending.append((estatus, rstatus, out, s.rlens[c0:c1]))
-    return pending
+    return pending, mtf
 
 
 def collect(pending) -> bytes:

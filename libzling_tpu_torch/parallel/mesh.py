@@ -33,6 +33,11 @@ that g's histograms and fetches do not wait for g+1's K4.  Entries that
 name one card run side by side there: D copies of one card measure the
 lanes' overhead, not their scaling.
 
+The group loop is ``encode_groups``: groups arrive one at a time (from a
+file, ``utils/io.py``), and each yields its bytes with its exit carry
+(the device-resident MTF state and the level), from which a stream can
+also start.  ``encode_lanes`` is its one-shot case over a whole buffer.
+
 Not ported: the ``tokenizer="xla"`` twin (its role on the CPU is K4's
 plain version, exact at every level), ``elastic`` (a host re-encode of a
 failed group), the chunk-axis bucketing and the stage probe, which serve
@@ -42,6 +47,7 @@ XLA's shapes and the TPU's host link.
 from __future__ import annotations
 
 import contextlib
+from typing import Iterable, Iterator
 
 import numpy as np
 import torch
@@ -164,15 +170,44 @@ def mesh_encode(data: bytes, level: int, devices=None,
 
 def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
                  max_tokens: int, blocks_per_device: int) -> bytes:
-    """The group loop of ``mesh_encode`` over ``lanes``' entries."""
+    """The group loop of ``mesh_encode`` over ``lanes``' entries: the
+    one-shot case of ``encode_groups``, ``data`` cut into groups of
+    ``lanes.count * blocks_per_device`` blocks."""
+    def groups():
+        step = lanes.count * blocks_per_device * block_size
+        view = memoryview(data)
+        for i in range(0, len(data), step):
+            yield view[i:i + step]
+
+    return b"".join(out for out, _ in encode_groups(
+        groups(), level, lanes, block_size, max_tokens, blocks_per_device))
+
+
+def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
+                  block_size: int, max_tokens: int, blocks_per_device: int,
+                  carry: tuple[torch.Tensor, int] | None = None
+                  ) -> Iterator[tuple[bytes, tuple[torch.Tensor, int]]]:
+    """Encode a stream that arrives a group of blocks at a time.
+
+    Every group but the last must hold exactly ``lanes.count *
+    blocks_per_device`` whole blocks (a shorter one would end a block
+    early: a valid stream, but not the canonical one), else ValueError.
+    Yields, for each group, its framed bytes and its exit carry ``(state,
+    level)``: the u8 [2, 256, 256] K5 state, still on the device, and the
+    level the next chunk starts at.  ``carry`` None is the stream start;
+    a carry given from outside continues the stream it came from.  Group
+    g+1 is taken from ``groups`` (and launched, the look-ahead) before g's
+    bytes are yielded, so at most two groups of input are held, and a
+    finished group's device buffers are released before it is yielded.
+    """
+    if level not in LEVEL_PARAMS:
+        raise ValueError("level must be 0..6")
     if blocks_per_device < 1:
         raise ValueError("blocks_per_device must be >= 1")
-    if not data:
-        return b""
     bpd = blocks_per_device
     max_chunks = ge.max_chunks_of(block_size, max_tokens)
-    nblocks = (len(data) + block_size - 1) // block_size
     G = lanes.count * bpd
+    size = G * block_size
 
     def launch(cur: dict) -> None:
         """Queue every local run's K4, then the K5 chain over the runs."""
@@ -188,8 +223,9 @@ def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
                     state = cur["parts"][i].relabel(state)
         cur["state_out"], cur["src_out"] = lanes.group_exit(state, src)
 
-    def dispatch(g0: int, entry: int, state_in, src_in) -> dict:
-        blocks = range(g0, min(g0 + G, nblocks))
+    def dispatch(data, entry: int, state_in, src_in) -> dict:
+        """Launch one group, its blocks numbered from 0 over ``data``."""
+        blocks = range(-(-len(data) // block_size))
         runs = [blocks[k:k + bpd] for k in range(0, len(blocks), bpd)]
         sched = np.full((len(blocks), max_chunks), level, np.int32)
         sched[0, 0] = entry
@@ -199,7 +235,7 @@ def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
                 with lanes.on(i):
                     parts[i] = ge.Part(data, runs[i], block_size, max_tokens,
                                        lanes.devices[i])
-        cur = dict(sched=sched, entry=entry, state_in=state_in,
+        cur = dict(data=data, sched=sched, entry=entry, state_in=state_in,
                    src_in=src_in, parts=parts, n=len(runs))
         launch(cur)
         return cur
@@ -224,16 +260,39 @@ def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
                               for i, p in cur["parts"].items()}, cur["n"])
         return ge.frame(views), expected, passes == 1
 
-    out = bytearray()
-    pend = dispatch(0, level, lanes.initial_state(), None)
-    for g0 in range(0, nblocks, G):
-        cur, nxt = pend, g0 + G
+    def take(it):
+        """The next non-empty group, or None at the end."""
+        for data in it:
+            if len(data) > size:
+                raise ValueError(f"a group holds at most {size} bytes")
+            if len(data):
+                return data
+        return None
+
+    it = iter(groups)
+    data = take(it)
+    if data is None:
+        return
+    if carry is None:
+        state, entry = lanes.initial_state(), level
+    else:
+        state, entry = carry
+        state = state.to(lanes.devices[lanes.entries[0]])
+    pend = dispatch(data, entry, state, None)
+    while pend is not None:
+        cur = pend
+        data = take(it)
+        if data is not None and len(cur["data"]) != size:
+            raise ValueError(f"a group before the last must hold {size} "
+                             f"bytes, not {len(cur['data'])}")
         # the look-ahead: g+1 from g's exit state, before g's host stages
-        pend = dispatch(nxt, level, cur["state_out"], cur["src_out"]) \
-            if nxt < nblocks else None
-        out_g, expected, clean = finish(cur)
-        out.extend(out_g)
+        pend = dispatch(data, level, cur["state_out"], cur["src_out"]) \
+            if data is not None else None
+        out, expected, clean = finish(cur)
         if pend is not None and (not clean or expected != level):
             metrics.registry.count("enc.pipeline_redispatch")
-            pend = dispatch(nxt, expected, cur["state_out"], cur["src_out"])
-    return bytes(out)
+            pend = None               # its buffers go before the new ones
+            pend = dispatch(data, expected, cur["state_out"], cur["src_out"])
+        state_out = cur["state_out"]
+        del cur
+        yield out, (state_out, expected)

@@ -227,7 +227,7 @@ def test_group_loop_does_not_wait_for_the_card(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        pending = decode_mesh.launch_lanes(
+        pending, _ = decode_mesh.launch_lanes(
             s, mesh.Lanes(mesh.make_mesh([cuda])), 1, mtf0)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -501,3 +501,66 @@ def test_lanes_over_two_gpus():
         stream = mesh_encode(data, 4, devs, blocks_per_device=bpd, **GEOM)
         assert stream == spec.encode(data, 4, **GEOM)
         assert mesh_decode(stream, devs, group_blocks=2) == data
+
+
+def test_stream_on_card_equals_the_engine(cuda):
+    # the canonical geometry, one block a group: a 17 MiB corpus is two
+    # groups, with the look-ahead and a group edge
+    import io
+
+    from libzling_tpu_torch.native import engine
+    from libzling_tpu_torch.utils import io as tio
+
+    data = smoke.corpus(17 << 20)
+    sink = io.BytesIO()
+    ttk.tokenize.launches = trk.relabel.launches = 0
+    tio.stream_encode(tio.FileSource(io.BytesIO(data)), tio.FileSink(sink),
+                      0, [cuda], blocks_per_device=1)
+    stream = sink.getvalue()
+    assert stream == engine.encode(data, 0)
+    assert ttk.tokenize.launches >= 2 and trk.relabel.launches >= 2
+    back = io.BytesIO()
+    tek.decode_chunks.launches = tresk.resolve_stream.launches = 0
+    tio.stream_decode(tio.FileSource(io.BytesIO(stream)), tio.FileSink(back),
+                      [cuda], group_blocks=1)
+    assert back.getvalue() == data
+    assert tresk.resolve_stream.launches == 2
+
+
+@pytest.mark.parametrize("kind", ["encode", "decode"])
+def test_resume_on_card_equals_the_one_shot_stream(cuda, tmp_path, kind):
+    from libzling_tpu_torch.utils import checkpoint
+
+    data = _lane_data()
+    src, dst, back, ck = (tmp_path / n for n in ("in", "out", "back", "ck"))
+    src.write_bytes(data)
+    want = spec.encode(data, 4, **GEOM)
+    runs = {
+        "encode": lambda: checkpoint.encode_file_resumable(
+            str(src), str(dst), 4, str(ck), [cuda], blocks_per_device=1,
+            **GEOM),
+        "decode": lambda: checkpoint.decode_file_resumable(
+            str(dst), str(back), str(ck), [cuda], group_blocks=1),
+    }
+    if kind == "decode":
+        dst.write_bytes(want)
+    orig = checkpoint._write_ckpt
+
+    def stop_once(*a):
+        orig(*a)
+        checkpoint._write_ckpt = orig
+        raise KeyboardInterrupt
+
+    checkpoint._write_ckpt = stop_once
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            runs[kind]()
+    finally:
+        checkpoint._write_ckpt = orig
+    assert ck.exists()
+    runs[kind]()
+    assert not ck.exists()
+    if kind == "encode":
+        assert dst.read_bytes() == want
+    else:
+        assert back.read_bytes() == data

@@ -59,7 +59,7 @@ print(len([k for k in sys.modules if k.startswith("libzling_tpu_torch.")]),
 
 @pytest.mark.parametrize("pkg,modules", [
     ("parallel", {"mesh", "decode_mesh", "distributed"}),
-    ("utils", {"metrics"}),
+    ("utils", {"metrics", "io", "checkpoint"}),
 ])
 def test_lanes_and_utils_load_no_jax_package(pkg, modules):
     # each module of the subpackage imported alone, in a fresh interpreter
@@ -78,6 +78,25 @@ print(json.dumps([names, sorted(bad)]))
                        text=True, check=True, timeout=300, cwd=REPO)
     names, bad = json.loads(r.stdout)
     assert set(names) == modules and bad == [], r.stdout
+
+
+def test_the_cli_loads_no_jax_package():
+    # ``python -m libzling_tpu_torch -h``, then the modules it loaded
+    code = """
+import runpy, sys
+sys.argv = ["libzling_tpu_torch", "-h"]
+try:
+    runpy.run_module("libzling_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+       or k == "libzling_tpu" or k.startswith("libzling_tpu.")]
+print("libzling_tpu_torch.cli" in sys.modules, bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, check=True, timeout=300, cwd=REPO)
+    assert r.stdout.split() == ["True", "[]"], r.stdout
+    assert "usage: python -m libzling_tpu_torch" in r.stderr
 
 
 @pytest.mark.parametrize("name", COPIED)
