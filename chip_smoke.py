@@ -84,7 +84,26 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      the resumable encode and decode stopped after their first checkpoint
      and resumed; the CLI's ``d`` on corrupt input (exit 1, ``error:``).
      One ``[stream ...]`` line each, with its seconds and MB/s beside the
-     card's name and power limit.
+     card's name and power limit;
+  9. the lanes' elastic recovery (``check_elastic``): ``mesh_encode(...,
+     elastic=True)`` over the card, one block a group, on the 48 MiB e0
+     corpus with a lost device (``DeviceLost``) injected once from
+     outside the package (``PartFaults``) into group 1's ``Part.finish``
+     and then into group 2's dispatch (the last group), each stream the
+     engine's, one ``enc.group_failover``, the look-ahead dispatched again
+     after the first, K4 and K5 launched on the card for the other groups,
+     the host re-encode of the failed 16 MiB block timed; then 64 KiB at
+     the small geometry and e4 (the CPU lane's route) against the CPU
+     lane's stream (for the recovered group the same code, ``Part`` on the
+     CPU: this run checks the carry and the card's groups); then the same
+     fault without ``elastic``, and a fault of the port's own
+     (RuntimeError) with it, which must raise and count nothing.  One
+     ``[elastic ...]`` line each;
+  10. the fuzz: ``python -m libzling_tpu_torch.fuzz --device cuda``
+     (``FUZZ_ARGS``) in a subprocess with a time limit -- a timeout, a
+     non-zero exit or a dump under ``build/fuzz/smoke`` fails the smoke
+     and names the last case; one ``[fuzz]`` line with its rounds, levels,
+     paths, corrupt cases raised / returned and seconds.
 
 A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K1 and K2 per
 token -- K1 also at e4 and per chunk kind --, K5 per literal of its
@@ -96,7 +115,7 @@ move over 3.35 TB/s) -- and for each probe row its launches in phase 6,
 its largest error, its bound, and per variant its time and cycles a step
 at the full loop count and its plain version's time at ``plain_n`` steps;
 the last line is ``{"ok": true, "device": {...}}``.  Launches in the
-kernels line sum the in-process drives of phases 4, 7 and 8 (and the
+kernels line sum the in-process drives of phases 4, 7, 8 and 9 (and the
 lane workers').
 The script needs one CUDA device and imports no JAX.
 """
@@ -1370,6 +1389,196 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
     return out
 
 
+class PartFaults:
+    """Fault injection from outside the package: wraps
+    ``group_encode.Part`` so that each group named in ``faults`` fails
+    once -- at its dispatch (``Part.__init__``), its K5 (``Part.relabel``)
+    or its finish (``Part.finish``) -- and records the groups whose K4 and
+    K5 were queued on ``device``.  A group is named by its index in
+    ``data``, cut into groups of ``size`` bytes (their first 64 bytes must
+    differ).  The fault raised is ``error`` (default ``DeviceLost``, a
+    lost device, the one error ``elastic`` recovers; RuntimeError stands
+    for a fault of the port's own kernels)."""
+
+    def __init__(self, data: bytes, size: int, faults: dict,
+                 device: torch.device, error=None):
+        from libzling_tpu_torch import _build
+        from libzling_tpu_torch import group_encode as ge
+
+        self.ge, self.orig = ge, {k: getattr(ge.Part, k) for k in (
+            "__init__", "finish", "tokenize", "relabel")}
+        self.heads = {data[o:o + 64]: o // size
+                      for o in range(0, len(data), size)}
+        assert len(self.heads) == -(-len(data) // size), "groups alike"
+        self.faults, self.fired = dict(faults), 0
+        self.device, self.k4, self.k5 = device, [], []
+        self.error = error or _build.DeviceLost
+
+    def __enter__(self):
+        f, orig = self, self.orig
+
+        def init(part, data, *a, **k):
+            part._group = f.heads.get(bytes(data[:64]))
+            f.fire(part._group, "dispatch")
+            orig["__init__"](part, data, *a, **k)
+
+        def finish(part):
+            f.fire(part._group, "finish")
+            return orig["finish"](part)
+
+        def tokenize(part, rows):
+            if part.device == f.device:
+                f.k4.append(part._group)
+            return orig["tokenize"](part, rows)
+
+        def relabel(part, state):
+            f.fire(part._group, "relabel")
+            if part.device == f.device:
+                f.k5.append(part._group)
+            return orig["relabel"](part, state)
+
+        for k, fn in (("__init__", init), ("finish", finish),
+                      ("tokenize", tokenize), ("relabel", relabel)):
+            setattr(self.ge.Part, k, fn)
+        return self
+
+    def fire(self, group, where: str) -> None:
+        if self.faults.get(group) == where:
+            del self.faults[group]
+            self.fired += 1
+            raise self.error(f"injected fault: group {group} {where}")
+
+    def __exit__(self, *exc):
+        for k, fn in self.orig.items():
+            setattr(self.ge.Part, k, fn)
+
+
+def check_elastic(drive, x48: bytes, s48: bytes, xs: bytes, card: str,
+                  dev: torch.device, block: int = 16 * MiB) -> dict:
+    """Phase 9: ``mesh_encode(..., elastic=True)`` on the card, one entry,
+    one block a group, with a lost device injected once.  The 48 MiB e0
+    corpus with group 1's ``Part.finish`` failing (its look-ahead, group
+    2, is dispatched again from the host's carry) and with group 2's
+    dispatch failing (the last group): each stream the engine's, one
+    ``enc.group_failover``, K4 and K5 queued on the card for groups 0 and
+    2, and the host re-encode of the failed 16 MiB block timed; then
+    ``xs`` at the small geometry (``SMALL``, level 4, so the CPU lane's
+    ``Part`` route recovers) against the CPU lane's stream; then the same
+    fault without ``elastic``, and a fault of the port's own with it,
+    each of which must raise and count nothing.  One ``[elastic ...]``
+    line each beside the card's name and power limit.
+    Returns each drive's launches."""
+    import libzling_tpu_torch as z
+    from libzling_tpu_torch import parallel
+    from libzling_tpu_torch.parallel import mesh as pmesh
+    from libzling_tpu_torch.utils import metrics
+
+    host = pmesh.host_encode_group
+    timed = []
+
+    def timed_host(data, *a):
+        t = time.perf_counter()
+        out = host(data, *a)
+        timed.append((len(data), time.perf_counter() - t))
+        return out
+
+    small = dict(SMALL)
+    big = dict(block_size=block)
+    runs = (
+        ("e0 48 MiB, group 1 finish", x48, 0, block, big, 1, "finish", s48),
+        ("e0 48 MiB, group 2 dispatch (the last)", x48, 0, block, big, 2,
+         "dispatch", s48),
+        ("e4 64 KiB small geometry, group 1 finish", xs, 4,
+         small["block_size"], small, 1, "finish",
+         z.encode(xs, 4, device="cpu", **small)))
+    out = {}
+    pmesh.host_encode_group = timed_host
+    try:
+        for name, x, level, size, geom, group, where, want in runs:
+            metrics.registry.reset()
+            timed.clear()
+            with PartFaults(x, size, {group: where}, dev) as f:
+                stream, sec, n = drive(lambda: parallel.mesh_encode(
+                    x, level, [dev], elastic=True, **geom),
+                    ("tokenize", "relabel"))
+            counters = metrics.registry.snapshot()["counters"]
+            assert stream == want, f"elastic {name}: stream differs"
+            assert f.fired == 1 and counters.get("enc.group_failover") == 1, \
+                (name, counters)
+            last = -(-len(x) // size) - 1
+            after = [g for g in range(last + 1) if g != group]
+            assert set(after) <= set(f.k4) and set(after) <= set(f.k5), \
+                (name, f.k4, f.k5)
+            if where == "finish" and group < last:
+                assert counters.get("enc.pipeline_redispatch", 0) >= 1
+            (host_bytes, host_s), = timed
+            row = dict(card=card, bytes=len(x), s=sec,
+                       MBps=len(x) / sec / 1e6, host_bytes=host_bytes,
+                       host_s=host_s, host_MBps=host_bytes / host_s / 1e6,
+                       launches=n, k4_groups=f.k4, counters=counters)
+            print(f"[elastic {name}] " + json.dumps(row), flush=True)
+            out[name] = n
+    finally:
+        pmesh.host_encode_group = host
+    # without elastic a lost device propagates; with it, a fault of the
+    # port's own (RuntimeError: a launch or kernel fault) propagates too
+    for name, error, elastic in (("elastic off, group 1 finish", None,
+                                  False),
+                                 ("elastic on, kernel fault in group 1 "
+                                  "finish", RuntimeError, True)):
+        metrics.registry.reset()
+        with PartFaults(xs, small["block_size"], {1: "finish"}, dev, error):
+            try:
+                parallel.mesh_encode(xs, 4, [dev], elastic=elastic, **small)
+                raise AssertionError(f"{name}: the fault did not raise")
+            except RuntimeError as e:
+                assert "injected fault" in str(e), e
+        assert metrics.registry.snapshot()["counters"].get(
+            "enc.group_failover", 0) == 0
+        print(f"[{name}] " + json.dumps(dict(
+            card=card, raised=True, group_failover=0)), flush=True)
+    return out
+
+
+FUZZ_DIR = os.path.join(REPO, "build", "fuzz", "smoke")
+FUZZ_S = 300           # phase 10's fuzz process, at most
+FUZZ_ARGS = ["--rounds", "50", "--max-size", "262144", "--seed", "0"]
+
+
+def check_fuzz(card: str) -> dict:
+    """Phase 10: ``python -m libzling_tpu_torch.fuzz --device cuda`` in a
+    subprocess with a time limit (``FUZZ_ARGS``; dumps under
+    ``build/fuzz/smoke``).  A timeout, a non-zero exit or a dump fails;
+    the last case line names the case.  Returns its summary."""
+    import shutil
+
+    shutil.rmtree(FUZZ_DIR, ignore_errors=True)
+    t = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "libzling_tpu_torch.fuzz", "--device",
+             "cuda", *FUZZ_ARGS, "--dump-dir", FUZZ_DIR],
+            capture_output=True, text=True, cwd=REPO, timeout=FUZZ_S)
+    except subprocess.TimeoutExpired as e:
+        cases = [ln for ln in (e.stdout or b"").decode().splitlines()
+                 if ln.startswith("[case]")]
+        raise AssertionError(f"the fuzz did not end within {FUZZ_S} s; "
+                             f"last case: {cases[-1:]}")
+    sec = time.perf_counter() - t
+    lines = r.stdout.splitlines()
+    cases = [ln for ln in lines if ln.startswith("[case]")]
+    assert r.returncode == 0 and not os.path.exists(FUZZ_DIR), (
+        f"fuzz rc {r.returncode}, last case {cases[-1:]}:\n"
+        + r.stderr[-4000:])
+    got = json.loads(lines[-1])
+    print("[fuzz] " + json.dumps(dict(
+        card=card, args=FUZZ_ARGS, rounds=got["rounds"], cases=got["cases"],
+        levels=got["levels"], styles=got["styles"], paths=got["paths"],
+        corrupt=got["corrupt"], fuzz_s=got["seconds"], wall_s=sec)),
+        flush=True)
+    return got
+
+
 def lanes_worker(init: str, rank: str) -> int:
     """One rank of phase 7's 2-process lane (``--lanes-worker``): encode and
     decode the 32 MiB input with ``distributed_encode`` and
@@ -1564,6 +1773,18 @@ def main() -> int:
     # ---- 8. the CLI and the streamed file layer
     streamed = check_stream(drive, engine, data, streams[0], x48, s48, card)
     t0 = phase("stream", t0, json.dumps(streamed))
+
+    # ---- 9. the lanes' elastic recovery
+    # 64 KiB for the small geometry: text, 8 KiB of the corpus's random
+    # bytes, text
+    xs = x48[:40960] + x48[24 * MiB:24 * MiB + 8192] + x48[40960:57344]
+    recovered = check_elastic(drive, x48, s48, xs, card, dev)
+    t0 = phase("elastic", t0, json.dumps(recovered))
+
+    # ---- 10. the fuzz, in a process of its own
+    fuzzed = check_fuzz(card)
+    t0 = phase("fuzz", t0, json.dumps(dict(
+        rounds=fuzzed["rounds"], cases=fuzzed["cases"])))
 
     assert "jax" not in sys.modules
     csrc = "libzling_tpu_torch/csrc/"

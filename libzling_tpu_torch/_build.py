@@ -183,8 +183,32 @@ def probes_lib() -> ctypes.CDLL:
     return _load("probes", probe_build, _PROBE_SIGNATURES)
 
 
+class DeviceLost(RuntimeError):
+    """The device stopped answering (``LOST_CODES``): not a fault of the
+    kernel that met it, and the only error the lanes' ``elastic`` recovery
+    takes (``parallel/mesh.py::encode_groups``)."""
+
+
+# cudaErrorDevicesUnavailable, cudaErrorNoDevice, cudaErrorECCUncorrectable,
+# cudaErrorContextIsDestroyed: the device or its context is gone.  Every
+# other code (an illegal address, a launch failure, a bad argument) is a
+# fault of the code that launched.
+LOST_CODES = frozenset({46, 100, 214, 709})
+
+
+def device_lost(exc: BaseException) -> bool:
+    """Whether ``exc`` says the device was lost: a ``DeviceLost``, or a
+    torch ``AcceleratorError`` whose ``error_code`` is in ``LOST_CODES``."""
+    return isinstance(exc, DeviceLost) or (
+        isinstance(exc, RuntimeError)
+        and getattr(exc, "error_code", None) in LOST_CODES)
+
+
 def check(err: int, name: str) -> None:
-    """Raise if a launch reported a CUDA error."""
+    """Raise if a launch reported a CUDA error: ``DeviceLost`` for a code
+    of ``LOST_CODES``, else RuntimeError."""
+    if err in LOST_CODES:
+        raise DeviceLost(f"{name}: CUDA error {err} at launch (device lost)")
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

@@ -5,12 +5,16 @@ The shared library is compiled with ``g++`` on first use into
 flags, so the package needs no install step; the build writes a temp file
 and renames it, so concurrent processes never load a half-written library.
 
-The port takes two things from it:
+The port takes three things from it:
 
   * ``length_tables``: exact canonical Huffman code lengths with the
     reference's heap tie-break (``ops/huffman.py::exact_length_tables``);
   * ``encode`` / ``decode``: the canonical host codec, the reference that
-    ``chip_smoke.py`` holds the card's streams to.
+    ``chip_smoke.py`` holds the card's streams to;
+  * ``encode_from``: whole blocks encoded from a carried MTF state and
+    level through the engine's split-stage ABI (tokenize with raw
+    literals, relabel, entropy-code a chunk) -- the lanes' host re-encode
+    of a failed group (``parallel/mesh.py``, ``elastic``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ import threading
 import numpy as np
 
 _SRC = pathlib.Path(__file__).with_name("engine.cpp")
+# engine.cpp's compiled-in geometry: kChunkTokens, kBlockIn, kChunkPayloadMax
+CHUNK_TOKENS = 262144
+BLOCK_BYTES = 16777216
+_PAYLOAD_MAX = 393216
+STATE_BYTES = 2 * 256 * 256    # MtfState: rank2sym, then sym2rank
 _REPO = pathlib.Path(__file__).resolve().parent.parent.parent
 # the match-loop debug counters compiled out, as the reference builds them
 FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
@@ -77,6 +86,25 @@ def _lib() -> ctypes.CDLL:
             dll.zlt_length_tables.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p]
+            # the split-stage ABI (engine.cpp: "split-stage pipeline ABI")
+            vp = ctypes.c_void_p
+            for name in ("zlt_tokenizer_new", "zlt_mtf_new"):
+                getattr(dll, name).restype = vp
+                getattr(dll, name).argtypes = []
+            for name in ("zlt_tokenizer_free", "zlt_mtf_free"):
+                getattr(dll, name).restype = None
+                getattr(dll, name).argtypes = [vp]
+            for name in ("zlt_mtf_load", "zlt_mtf_save"):
+                getattr(dll, name).restype = None
+                getattr(dll, name).argtypes = [vp, vp]
+            dll.zlt_tokenize_block_raw.restype = ctypes.c_int
+            dll.zlt_tokenize_block_raw.argtypes = [
+                vp, vp, ctypes.c_int, vp, ctypes.c_int, vp,
+                ctypes.c_longlong, vp, vp]
+            dll.zlt_relabel_block.restype = None
+            dll.zlt_relabel_block.argtypes = [vp, vp, vp, vp, ctypes.c_int]
+            dll.zlt_entropy_encode.restype = ctypes.c_int
+            dll.zlt_entropy_encode.argtypes = [vp, ctypes.c_int, vp]
             _ENC = dll.zlt_encoder_new()
             _DEC = dll.zlt_decoder_new()
             _LIB = dll
@@ -122,3 +150,93 @@ def decode(data: bytes) -> bytes:
     if n < 0:
         raise RuntimeError(f"zlt_decode failed ({n})")
     return ctypes.string_at(out, n)
+
+
+def encode_from(data: bytes, level: int, state: bytes, entry_level: int,
+                block_size: int = BLOCK_BYTES) -> tuple[bytes, bytes, int]:
+    """Encode ``data`` as whole blocks of ``block_size`` bytes, starting
+    from a carried MTF ``state`` (131,072 bytes, ``ops/mtf.py``
+    ``state_to_bytes``) and the level ``entry_level`` its first chunk is
+    coded at; returns (the blocks' stream bytes, the exit state, the exit
+    level).
+
+    The chunk cap is the engine's compiled-in ``CHUNK_TOKENS`` (the
+    canonical 262,144), so the bytes are ``spec``'s at ``max_tokens =
+    CHUNK_TOKENS`` from the same carry.  A serial form of the JAX
+    ``pipeline.ParallelEncoder.encode_with_carry``: each block is
+    tokenized under a per-chunk level schedule (the carried level, then
+    the requested one), relabelled from a snapshot of the state and coded
+    a chunk at a time while the adaptive drop (src/libzling.cpp:261-266)
+    is checked; where the schedule was wrong the state is restored and the
+    block tokenized again from the corrected chunk on.
+    """
+    if not 0 <= level <= 6 or not 0 <= entry_level <= 6:
+        raise ValueError("level must be 0..6")
+    if len(state) != STATE_BYTES:
+        raise ValueError(f"an MTF state is {STATE_BYTES} bytes, "
+                         f"not {len(state)}")
+    if not 1 <= block_size <= BLOCK_BYTES:
+        raise ValueError(f"block_size must be 1..{BLOCK_BYTES}")
+    dll = _lib()
+    src = np.frombuffer(data, np.uint8)
+    # a chunk ends at the token cap and holds at least half as many bytes
+    max_chunks = -(-block_size // (CHUNK_TOKENS // 2)) + 1
+    tokens = np.empty(block_size + CHUNK_TOKENS + 16, np.uint16)
+    payload = np.empty(_PAYLOAD_MAX + 512, np.uint8)
+    rlens = np.zeros(max_chunks, np.int32)
+    encpos = np.zeros(max_chunks, np.int32)
+    snapshot = np.empty(STATE_BYTES, np.uint8)
+    out = bytearray()
+    current = entry_level
+    tok = dll.zlt_tokenizer_new()
+    mtf = dll.zlt_mtf_new()
+    try:
+        dll.zlt_mtf_load(mtf, state)
+        for start in range(0, len(src), block_size):
+            ilen = min(block_size, len(src) - start)
+            block = np.zeros(ilen + 16, np.uint8)
+            block[:ilen] = src[start:start + ilen]
+            sched = np.full(max_chunks, level, np.int32)
+            sched[0] = current
+            dll.zlt_mtf_save(mtf, snapshot.ctypes.data)
+            while True:
+                n = dll.zlt_tokenize_block_raw(
+                    tok, block.ctypes.data, ilen, sched.ctypes.data,
+                    max_chunks, tokens.ctypes.data, tokens.size,
+                    rlens.ctypes.data, encpos.ctypes.data)
+                if n < 0:
+                    raise RuntimeError("zlt_tokenize_block_raw overflow")
+                dll.zlt_relabel_block(mtf, block.ctypes.data,
+                                      tokens.ctypes.data, rlens.ctypes.data,
+                                      n)
+                body = bytearray()
+                lvl, fix, tpos, prev_end = current, -1, 0, 0
+                for c in range(n):
+                    if int(sched[c]) != lvl:
+                        fix = c
+                        break
+                    rl, ep = int(rlens[c]), int(encpos[c])
+                    olen = dll.zlt_entropy_encode(
+                        tokens.ctypes.data + 2 * tpos, rl,
+                        payload.ctypes.data)
+                    body.append(1)
+                    body += ep.to_bytes(4, "big") + rl.to_bytes(4, "big") \
+                        + olen.to_bytes(4, "big")
+                    body += payload[:olen].tobytes()
+                    lvl = 0 if olen / (ep - prev_end + 1) > 0.95 else level
+                    tpos += rl
+                    prev_end = ep
+                if fix < 0:
+                    break
+                # the chunks before ``fix`` stay; it and the rest run at
+                # the level its predecessor left
+                sched[fix:] = lvl
+                dll.zlt_mtf_load(mtf, snapshot.ctypes.data)
+            out += body
+            out.append(0)
+            current = lvl
+        dll.zlt_mtf_save(mtf, snapshot.ctypes.data)
+    finally:
+        dll.zlt_mtf_free(mtf)
+        dll.zlt_tokenizer_free(tok)
+    return bytes(out), snapshot.tobytes(), current

@@ -11,7 +11,9 @@ calls the same function with the same arguments and gets the same result:
     group's exit state is broadcast from the last rank; the chunk metadata
     and then the realized words are all-gathered, so that every rank
     validates the same schedule, re-runs the same groups and frames the
-    identical stream (distributed.py:60-78);
+    identical stream (distributed.py:60-78); with ``elastic`` the ranks
+    agree by an all-reduce whether a rank's device was lost in a group,
+    and every rank then encodes the group again on the host;
   * ``distributed_decode`` -- ``decode_mesh.decode_lanes`` with one entry a
     process: K1 on each rank's run of a group's chunks, the tokens
     all-gathered, and K2 replicated on every rank (decode_mesh.py:95-103),
@@ -137,6 +139,14 @@ class RankLanes(Lanes):
             dist.broadcast(buf, last)
             return buf.to(self.device), None
 
+    def any_failed(self, failed: bool) -> bool:
+        """Whether this group failed in any process: one int all-reduced
+        with MAX over the process group."""
+        flag = torch.tensor([int(failed)], dtype=torch.int32,
+                            device=self.comm)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     def _all_gather(self, arrays: list) -> list:
         """Every rank's list of 1-D arrays (as int64; the same count on
         every rank), in rank order."""
@@ -199,17 +209,29 @@ class RankLanes(Lanes):
 def distributed_encode(data: bytes, level: int,
                        block_size: int = BLOCK_SIZE_IN,
                        max_tokens: int = BLOCK_SIZE_ROLZ, device=None,
-                       blocks_per_device: int = 1) -> bytes:
+                       blocks_per_device: int = 1,
+                       elastic: bool = False) -> bytes:
     """Canonical encode with each group's blocks spread over the ranks,
     ``blocks_per_device`` consecutive blocks a rank, on this rank's
     ``device`` (default: GPU rank mod the GPUs visible).  Every rank gets
     the same stream, byte-identical to ``spec.encode`` at equal
-    geometry."""
+    geometry.
+
+    ``elastic`` (``mesh.encode_groups``): a group in which any rank's
+    device was lost is encoded again on the host by every rank, from the
+    entry carry every rank holds (``group_exit`` broadcasts it), after the
+    ranks agree on the failure by an all-reduce before their next
+    collective; each rank counts it as ``enc.group_failover`` and returns
+    the same stream.  Any other error propagates, as does a second failed
+    group in a row.  A rank that fails inside the K5 chain's
+    ``send``/``recv``, the exit broadcast or an all-gather leaves its
+    peers in that collective until the process group's timeout: only
+    failures caught before the rank's next collective are recovered."""
     if level not in LEVEL_PARAMS:
         raise ValueError("level must be 0..6")
     lanes = RankLanes(device)
     return encode_lanes(bytes(data), level, lanes, block_size, max_tokens,
-                        blocks_per_device)
+                        blocks_per_device, elastic)
 
 
 def distributed_decode(data: bytes, group_blocks: int | None = 1,

@@ -3,9 +3,10 @@
 Counterpart of ``libzling_tpu/utils/metrics.py``: a process-wide registry
 of named counters and timers, cheap enough to leave on (the reference's
 compile-gated debug counters, src/libzling_debug.h:38-49).  The lanes
-count ``enc.schedule_mispredicts`` (extra validation passes of a group)
-and ``enc.pipeline_redispatch`` (look-ahead groups launched again) under
-the JAX package's names.  Device profiling is ``torch.profiler``
+count ``enc.schedule_mispredicts`` (extra validation passes of a group),
+``enc.pipeline_redispatch`` (look-ahead groups launched again) and
+``enc.group_failover`` (groups encoded again on the host, ``elastic``)
+under the JAX package's names.  Device profiling is ``torch.profiler``
 (``trace``).
 """
 

@@ -564,3 +564,38 @@ def test_resume_on_card_equals_the_one_shot_stream(cuda, tmp_path, kind):
         assert dst.read_bytes() == want
     else:
         assert back.read_bytes() == data
+
+
+# ---- the lanes' elastic recovery and the fuzz, on the card
+
+@pytest.mark.parametrize("route", ["cpu lane", "native"])
+@pytest.mark.parametrize("group,where", [(1, "finish"), (0, "dispatch")])
+def test_elastic_recovery_on_card(cuda, route, group, where):
+    # one fault in a group of two entries of the card: the stream is
+    # spec's, one failover, and K4 ran on the card for the last group
+    from libzling_tpu_torch.parallel import mesh_encode
+    from libzling_tpu_torch.tables import BLOCK_SIZE_ROLZ
+    from libzling_tpu_torch.utils import metrics
+
+    data = _lane_data()
+    geom = dict(GEOM, max_tokens=GEOM["max_tokens"] if route == "cpu lane"
+                else BLOCK_SIZE_ROLZ)
+    devs = [torch.device("cuda", 0)] * 2
+    metrics.registry.reset()
+    with smoke.PartFaults(data, 2 * geom["block_size"], {group: where},
+                          devs[0]) as f:
+        got = mesh_encode(data, 4, devs, elastic=True, **geom)
+    assert got == spec.encode(data, 4, **geom)
+    assert f.fired == 1
+    assert metrics.registry.snapshot()["counters"].get(
+        "enc.group_failover") == 1
+    assert 2 in f.k4 and 2 in f.k5
+
+
+def test_fuzz_on_card(cuda, tmp_path):
+    from libzling_tpu_torch import fuzz
+
+    dump = tmp_path / "fuzz"
+    assert fuzz.main(["--device", "cuda", "--rounds", "5", "--max-size",
+                      "65536", "--seed", "3", "--dump-dir", str(dump)]) == 0
+    assert not dump.exists()

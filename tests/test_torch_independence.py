@@ -99,6 +99,25 @@ print("libzling_tpu_torch.cli" in sys.modules, bad)
     assert "usage: python -m libzling_tpu_torch" in r.stderr
 
 
+def test_the_fuzz_loads_no_jax_package():
+    # ``python -m libzling_tpu_torch.fuzz -h``, then the modules it loaded
+    code = """
+import runpy, sys
+sys.argv = ["fuzz", "-h"]
+try:
+    runpy.run_module("libzling_tpu_torch.fuzz", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+       or k == "libzling_tpu" or k.startswith("libzling_tpu.")]
+print("libzling_tpu_torch.native.engine" in sys.modules, bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, check=True, timeout=300, cwd=REPO)
+    assert r.stdout.splitlines()[-1].split() == ["True", "[]"], r.stdout
+    assert r.stdout.startswith("usage: python -m libzling_tpu_torch.fuzz")
+
+
 @pytest.mark.parametrize("name", COPIED)
 def test_tables_equal_the_jax_package(name):
     mine, theirs = getattr(tables, name), getattr(jtables, name)
