@@ -40,7 +40,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      each path and read just after it; each kernel of the path must have
      launched.  Then each kernel again on the inputs the e0 run gave it
      (both 16 MiB blocks, 262,144-token chunks, the e0 stream) against its
-     plain version (exact equality), timed, with the bytes it must move;
+     plain version (exact equality; K4's plain version on the block with
+     more units, the walk that sets K4's time), timed, with the bytes it
+     must move;
      K4 also alone at the e4 shapes (timed); K1 also at the e4 shapes
      (against its plain version) and on the e0 stream's near-fixed-length
      chunks and as many text chunks, each set alone (timed), with the
@@ -78,8 +80,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      engine's stream, zlib's adler32) and ``d`` back, ``e4`` through
      stdin/stdout on 4 MiB; ``stream_encode`` one block a group over the
      48 MiB corpus (3 groups: group edges and the look-ahead) and over its
-     two 2-group windows, each the engine's stream, the 3-group device
-     memory peak at most 1.1x the larger window's (O(group));
+     heavier 2-group window (blocks 1-2), each the engine's stream, the
+     3-group device memory peak at most 1.1x the window's (O(group));
      ``stream_decode`` one block a span back;
      the resumable encode and decode stopped after their first checkpoint
      and resumed; the CLI's ``d`` on corrupt input (exit 1, ``error:``).
@@ -103,7 +105,22 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      (``FUZZ_ARGS``) in a subprocess with a time limit -- a timeout, a
      non-zero exit or a dump under ``build/fuzz/smoke`` fails the smoke
      and names the last case; one ``[fuzz]`` line with its rounds, levels,
-     paths, corrupt cases raised / returned and seconds.
+     paths, corrupt cases raised / returned and seconds;
+  11. the block-parallel host pipeline (``check_pipeline``):
+     ``pipeline.encode`` of phase 4's inputs equal to phase 4's streams and
+     ``pipeline.decode`` back; the CLI's ``e0 --backend pipeline`` of the
+     32 MiB file piped into ``d --backend pipeline`` (the engine's stream,
+     the input, zlib's adler32); the resumable pair across routes over the
+     48 MiB corpus, one block a group (the lanes' encode on the card
+     stopped after group 0 and resumed on the pipeline, the pipeline's
+     decode stopped and resumed on the lanes).  One ``[pipeline ...]``
+     line each with host seconds and MB/s, the host's CPU count and the
+     pipeline's workers, beside phase 4's card times;
+  12. K4's schedule sweep (``check_sweep``, ``probes/sweep_tokenize.py``):
+     each row's K4 output on the first 256 KiB of the 2 MiB corpus slice
+     equal to its plain version, then the timed rows over the 2 MiB (one
+     ``[sweep ...]`` line each: units, ms, ns a unit, the change from the
+     row before) and the engine's match-loop counters at e0.
 
 A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K1 and K2 per
 token -- K1 also at e4 and per chunk kind --, K5 per literal of its
@@ -115,8 +132,8 @@ move over 3.35 TB/s) -- and for each probe row its launches in phase 6,
 its largest error, its bound, and per variant its time and cycles a step
 at the full loop count and its plain version's time at ``plain_n`` steps;
 the last line is ``{"ok": true, "device": {...}}``.  Launches in the
-kernels line sum the in-process drives of phases 4, 7, 8 and 9 (and the
-lane workers').
+kernels line sum the in-process drives of phases 4, 7, 8, 9, 11 and 12
+(and the lane workers').
 The script needs one CUDA device and imports no JAX.
 """
 
@@ -827,16 +844,31 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
     max_chunks = -(-BLOCK_SIZE_IN // (BLOCK_SIZE_ROLZ // 2)) + 1
     params = tkk.level_params(np.zeros((nb, max_chunks), np.int64), "cpu")
     args = (offs, lens, offs, params, BLOCK_SIZE_ROLZ, len(data))
-    # K4 reads the block bytes and writes each unit and its position once
-    units, upos, cstat, bstat = want = check(
-        "tokenize", lambda: tkk.tokenize(bufd, *args),
-        lambda: tkk.tokenize_plain(buf, *args),
-        lambda w: nbytes(buf, *args, w[2], w[3])
-        + 8 * int(w[2][:, :, 0].sum()))
+    # K4 once over both blocks, as the main path launches it; its plain
+    # version on the block with more units alone (the walk that sets K4's
+    # time): the other block's units are held to the engine through the
+    # e0 stream (phase 4) and to the plain version at small geometry
+    got = []
+    ms = cuda_ms(lambda: got.append(tkk.tokenize(bufd, *args)), 1, False)
+    units, upos, cstat, bstat = (t.cpu() for t in got[0])
     assert not bstat[:, 1].any()
     cnt = cstat[:, :, 0].sum(1)
-    # K4's blocks run side by side: its time is its longest block's walk
-    rows["tokenize"].update(units=int(cnt.sum()), walker_units=int(cnt.max()))
+    b = int(cnt.argmax())
+    t = time.perf_counter()
+    want = tkk.tokenize_plain(buf, offs[b:b + 1], lens[b:b + 1],
+                              torch.zeros(1, dtype=torch.int64),
+                              params[b:b + 1], BLOCK_SIZE_ROLZ, int(lens[b]))
+    plain_ms = (time.perf_counter() - t) * 1e3
+    o, n = int(offs[b]), int(cnt[b])
+    # K4 reads the block bytes and writes each unit and its position once
+    rows["tokenize"] = dict(
+        max_abs_err=max_abs_err(zip(
+            (units[o:o + n], upos[o:o + n], cstat[b:b + 1], bstat[b:b + 1]),
+            (want[0][:n], want[1][:n], want[2], want[3]))),
+        ms=ms, plain_ms=plain_ms, plain_block=b,
+        bytes=nbytes(buf, *args, cstat, bstat) + 8 * int(cnt.sum()),
+        # K4's blocks run side by side: its time is its longest block's walk
+        units=int(cnt.sum()), walker_units=int(cnt.max()))
     # K4 alone at the e4 main path's shapes: 20 MiB, the schedule
     # group_encode launches first at e4 (level 4 in every chunk slot)
     n4 = 20 * MiB
@@ -1225,6 +1257,32 @@ class _Interrupt(Exception):
     """Phase 8's stand-in for a job killed after its first checkpoint."""
 
 
+def stopped_and_resumed(first, then, ckpt: str, name: str) -> None:
+    """Run ``first`` (a resumable job) until its first checkpoint is
+    written, as a job killed there, then ``then`` from that checkpoint;
+    the checkpoint must exist between them and be gone after."""
+    from libzling_tpu_torch.utils import checkpoint
+
+    orig = checkpoint._write_ckpt
+
+    def stop_once(*a):
+        orig(*a)
+        checkpoint._write_ckpt = orig
+        raise _Interrupt
+
+    checkpoint._write_ckpt = stop_once
+    try:
+        first()
+        raise AssertionError(f"resumable {name} was not stopped")
+    except _Interrupt:
+        pass
+    finally:
+        checkpoint._write_ckpt = orig
+    assert os.path.exists(ckpt), f"{name}: no checkpoint"
+    then()
+    assert not os.path.exists(ckpt), f"{name}: checkpoint kept"
+
+
 def cli(*args, stdin: bytes | None = None):
     """``python -m libzling_tpu_torch`` with ``args``; returns (the
     completed process, its seconds)."""
@@ -1248,9 +1306,9 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
     (its stream the engine's, its adler32 zlib's) and ``d`` back; ``e4``
     through stdin/stdout on 4 MiB of it; ``stream_encode`` with one block
     a group over the 48 MiB corpus (three groups: group edges and the
-    look-ahead) and over its two windows of two groups (blocks 0-1, 1-2),
+    look-ahead) and over its heavier window of two groups (blocks 1-2),
     each equal to the engine's stream, with the device memory peak of
-    each (the 3-group peak at most 1.1x the larger window's: memory is
+    each (the 3-group peak at most 1.1x the window's: memory is
     O(group)), then ``stream_decode`` one block a span back;
     ``encode_file_resumable`` / ``decode_file_resumable`` stopped after
     their first checkpoint and resumed; the CLI's ``d`` on a truncated
@@ -1308,14 +1366,13 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
     # that of its heaviest window of two groups: a group's finish beside
     # the next group's look-ahead, and the finish's buffers grow with the
     # units a block holds (with its content: block 1 holds the random
-    # MiB).  So the 3-group peak is held to the larger of its two windows,
-    # blocks 0-1 and blocks 1-2, each run as a stream of its own; a peak
-    # that grew with the stream's length would exceed both
-    n2 = sum(n for _, n in zio._per_block_sizes(s48)[:2])
+    # MiB).  So the 3-group peak is held to its heavier window, blocks 1-2
+    # (854.8 MB against blocks 0-1's 739.5 MB on an H100 80GB HBM3), run
+    # as a stream of its own; a peak that grew with the stream's length
+    # would exceed it
     x12 = x48[16 * MiB:]
     peaks = {}
-    for tag, x, want in (("blocks 0-1", x48[:32 * MiB], s48[:n2]),
-                         ("blocks 1-2", x12, engine.encode(x12, 0)),
+    for tag, x, want in (("blocks 1-2", x12, engine.encode(x12, 0)),
                          ("blocks 0-2", x48, s48)):
         sink = _io.BytesIO()
         torch.cuda.synchronize()
@@ -1327,12 +1384,10 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
         assert sink.getvalue() == want, f"stream_encode {tag} != engine"
         line(f"stream_encode e0 48 MiB corpus, {tag}", len(x), sec,
              launches=n, peak_bytes=peaks[tag])
-    window = max(peaks["blocks 0-1"], peaks["blocks 1-2"])
-    ratio = peaks["blocks 0-2"] / window
+    ratio = peaks["blocks 0-2"] / peaks["blocks 1-2"]
     print("[stream memory] " + json.dumps(dict(
-        card=card, peak_bytes=peaks,
-        ratio_to_first_two_groups=peaks["blocks 0-2"] / peaks["blocks 0-1"],
-        ratio_to_heavier_window=ratio)), flush=True)
+        card=card, peak_bytes=peaks, ratio_to_heavier_window=ratio)),
+        flush=True)
     assert ratio <= 1.1, f"device memory grows with the stream: {ratio}"
     sink = _io.BytesIO()
     _, sec, n = drive(lambda: zio.stream_decode(
@@ -1343,13 +1398,6 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
          launches=n)
 
     # 5. resume after the first checkpoint, both directions
-    orig = checkpoint._write_ckpt
-
-    def stop_once(*a):
-        orig(*a)
-        checkpoint._write_ckpt = orig
-        raise _Interrupt
-
     for name, run, want, path, n_bytes in (
             ("encode", lambda: checkpoint.encode_file_resumable(
                 f["x32"], f["rs32"], 0, f["ckpt"], blocks_per_device=1),
@@ -1357,20 +1405,10 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
             ("decode", lambda: checkpoint.decode_file_resumable(
                 f["rs32"], f["rback"], f["ckpt"], group_blocks=1),
              x32, f["rback"], len(x32))):
-        checkpoint._write_ckpt = stop_once
         t = time.perf_counter()
-        try:
-            run()
-            raise AssertionError(f"resumable {name} was not stopped")
-        except _Interrupt:
-            pass
-        finally:
-            checkpoint._write_ckpt = orig
-        assert os.path.exists(f["ckpt"]), f"{name}: no checkpoint"
-        run()
+        stopped_and_resumed(run, run, f["ckpt"], name)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t
-        assert not os.path.exists(f["ckpt"]), f"{name}: checkpoint kept"
         with open(path, "rb") as fh:
             assert fh.read() == want, f"resumed {name} differs"
         line(f"resumable {name} e0 32 MiB, stopped and resumed", n_bytes,
@@ -1542,7 +1580,7 @@ def check_elastic(drive, x48: bytes, s48: bytes, xs: bytes, card: str,
 
 FUZZ_DIR = os.path.join(REPO, "build", "fuzz", "smoke")
 FUZZ_S = 300           # phase 10's fuzz process, at most
-FUZZ_ARGS = ["--rounds", "50", "--max-size", "262144", "--seed", "0"]
+FUZZ_ARGS = ["--rounds", "20", "--max-size", "262144", "--seed", "0"]
 
 
 def check_fuzz(card: str) -> dict:
@@ -1577,6 +1615,155 @@ def check_fuzz(card: str) -> dict:
         corrupt=got["corrupt"], fuzz_s=got["seconds"], wall_s=sec)),
         flush=True)
     return got
+
+
+PIPE_DIR = os.path.join(REPO, "build", "pipeline")
+PIPE_CLI_S = 300       # phase 11's CLI pair, at most
+
+
+def check_pipeline(drive, x32: bytes, s32: bytes, x20: bytes, s20: bytes,
+                   x48: bytes, s48: bytes, main_times: dict,
+                   card: str) -> dict:
+    """Phase 11: the block-parallel host pipeline (``pipeline.py``).
+
+    ``pipeline.encode`` of phase 4's 32 MiB e0 and 20 MiB e4 inputs must
+    give phase 4's streams (the card's, the engine's) and
+    ``pipeline.decode`` the inputs back; ``python -m libzling_tpu_torch
+    e0 --backend pipeline --checksum`` of the 32 MiB file piped into ``d
+    --backend pipeline --checksum`` (two processes side by side): the
+    engine's stream, the input, zlib's adler32 on both sides; a resumable
+    job over the 48 MiB corpus, one block a group, crossing routes: the
+    lanes' encode on the card stopped after its first group and resumed
+    on the pipeline, then the pipeline's decode stopped after its first
+    block and resumed on the lanes.  One ``[pipeline ...]`` line each:
+    host seconds and MB/s, measured on the host of the machine with the
+    card, with its CPU count and the pipeline's workers, beside phase 4's
+    card times for the same input.  Returns the lanes' launches."""
+    import zlib
+
+    from libzling_tpu_torch import pipeline
+    from libzling_tpu_torch.utils import checkpoint
+    from libzling_tpu_torch.utils import metrics
+
+    def line(name, n, sec, **kw):
+        print(f"[pipeline {name}] " + json.dumps(dict(
+            card=card, host_measured="on the host of the machine with the "
+            "card", cpus=os.cpu_count(), workers=pipeline._ENC.workers,
+            bytes=n, s=sec, MBps=n / sec / 1e6, **kw)), flush=True)
+
+    for level, x, want in ((0, x32, s32), (4, x20, s20)):
+        metrics.registry.reset()
+        t = time.perf_counter()
+        stream = pipeline.encode(x, level)
+        sec = time.perf_counter() - t
+        assert stream == want, f"pipeline e{level}: stream != engine / card"
+        card_s = main_times[level]
+        line(f"encode e{level}", len(x), sec,
+             card_encode_s=card_s["encode"]["s"],
+             counters=pipeline.counters())
+        t = time.perf_counter()
+        back = pipeline.decode(stream)
+        sec = time.perf_counter() - t
+        assert back == x, f"pipeline e{level}: decode differs"
+        line(f"decode e{level}", len(x), sec, card_decode_s={
+            k: card_s[k]["s"] for k in ("fused", "split", "groups")})
+
+    os.makedirs(PIPE_DIR, exist_ok=True)
+    f = {k: os.path.join(PIPE_DIR, k)
+         for k in ("x32", "s32", "back", "e.err", "d.err", "x48", "rs48",
+                   "rback48", "ckpt")}
+    for path in f.values():
+        if os.path.exists(path):
+            os.remove(path)
+    with open(f["x32"], "wb") as fh:
+        fh.write(x32)
+    with open(f["x48"], "wb") as fh:
+        fh.write(x48)
+
+    # the CLI: e0 piped into d, both on the pipeline
+    pm = f"{sys.executable} -m libzling_tpu_torch"
+    t = time.perf_counter()
+    r = subprocess.run(
+        ["bash", "-c", "set -o pipefail; "
+         f"{pm} e0 {f['x32']} --backend pipeline --checksum 2>{f['e.err']}"
+         f" | tee {f['s32']} | {pm} d --backend pipeline --checksum "
+         f">{f['back']} 2>{f['d.err']}"],
+        cwd=REPO, timeout=PIPE_CLI_S, capture_output=True)
+    sec = time.perf_counter() - t
+    errs = {k: open(f[k], "rb").read() for k in ("e.err", "d.err")}
+    assert r.returncode == 0, (r.returncode, errs)
+    with open(f["s32"], "rb") as fh:
+        assert fh.read() == s32, "CLI e0 --backend pipeline != engine"
+    with open(f["back"], "rb") as fh:
+        assert fh.read() == x32, "CLI d --backend pipeline differs"
+    want_adler = f"adler32: {zlib.adler32(x32):#010x}"
+    assert adler_line(errs["e.err"]) == adler_line(errs["d.err"]) \
+        == want_adler, errs
+    line("cli e0 | d 32 MiB", len(x32), sec, process=True,
+         adler32=want_adler.split()[1])
+
+    # a resumable job across routes, one block a group
+    def encode_across():
+        stopped_and_resumed(
+            lambda: checkpoint.encode_file_resumable(
+                f["x48"], f["rs48"], 0, f["ckpt"], blocks_per_device=1),
+            lambda: checkpoint.encode_file_resumable(
+                f["x48"], f["rs48"], 0, f["ckpt"], route="pipeline"),
+            f["ckpt"], "encode, lanes then pipeline")
+
+    def decode_across():
+        stopped_and_resumed(
+            lambda: checkpoint.decode_file_resumable(
+                f["rs48"], f["rback48"], f["ckpt"], group_blocks=1,
+                route="pipeline"),
+            lambda: checkpoint.decode_file_resumable(
+                f["rs48"], f["rback48"], f["ckpt"], group_blocks=1),
+            f["ckpt"], "decode, pipeline then lanes")
+
+    out = {}
+    for name, run, want, path, kernels in (
+            ("encode: lanes (card), then pipeline", encode_across, s48,
+             f["rs48"], ("tokenize", "relabel")),
+            ("decode: pipeline, then lanes (card)", decode_across, x48,
+             f["rback48"], ("entropy_decode", "resolve"))):
+        _, sec, n = drive(run, kernels)
+        with open(path, "rb") as fh:
+            assert fh.read() == want, f"resumed {name} differs"
+        line(f"resumable {name}, e0 48 MiB, stopped after group 0",
+             len(x48), sec, launches=n)
+        out[name] = n
+    return out
+
+
+def check_sweep(drive, dev, card: str) -> dict:
+    """Phase 12: K4's schedule sweep (``probes/sweep_tokenize.py``).  Each
+    row's K4 output on the slice's first 256 KiB against its plain version
+    (exact equality: d1, d2 and d3 are schedules no level reaches), then
+    the timed sweep over the 2 MiB corpus slice, counted, one ``[sweep
+    ...]`` line a row, and the engine's match-loop counters over the same
+    slice at e0.  Returns the launches and the largest error."""
+    from libzling_tpu_torch.ops import tokenize_kernel as tkk
+    from libzling_tpu_torch.probes import sweep_tokenize as sw
+
+    data = sw.corpus_slice(2 * MiB)
+    head = data[:256 << 10]
+    errs = {}
+    for name, sched in sw.ROWS:
+        got = tkk.tokenize(*sw.k4_args(head, sched, dev))
+        want = tkk.tokenize_plain(*sw.k4_args(head, sched, "cpu"))
+        errs[name] = max_abs_err(zip(got, want))
+    print("[sweep kernel==plain, 256 KiB] " + json.dumps(errs), flush=True)
+    assert not any(errs.values()), errs
+    rows, sec, n = drive(lambda: sw.sweep(data, dev), ("tokenize",))
+    for r in rows:
+        print(f"[sweep {r['row']}] " + json.dumps(dict(card=card, **r)),
+              flush=True)
+    counts = sw.engine_counters(data)
+    nu = rows[2]["units"]
+    print("[sweep e0 engine counters] " + json.dumps(dict(
+        bytes=len(data), units=nu, counts=counts,
+        per_unit={k: v / nu for k, v in counts.items()})), flush=True)
+    return dict(launches=n, max_abs_err=max(errs.values()), s=sec)
 
 
 def lanes_worker(init: str, rank: str) -> int:
@@ -1696,7 +1883,7 @@ def main() -> int:
         return out, sec, counts
 
     split = ("entropy_decode", "resolve")
-    streams = {}
+    streams, main_times = {}, {}
     for level, size in ((0, 32 * MiB), (4, 20 * MiB)):
         x = data[:size]
         stream, enc_s, enc_n = drive(lambda: z.encode(x, level),
@@ -1720,6 +1907,7 @@ def main() -> int:
             stream, group_blocks=1, stage_probe=probe), split)
         assert back == x
         times["groups_probe"] = dict(s=sec, **probe)
+        main_times[level] = times
         t0 = phase(f"main e{level}", t0, json.dumps(dict(
             bytes=len(x), stream=len(stream), ratio=len(stream) / len(x),
             blocks=-(-len(x) // (16 * MiB)), canonical=True, round_trip=True,
@@ -1786,6 +1974,15 @@ def main() -> int:
     t0 = phase("fuzz", t0, json.dumps(dict(
         rounds=fuzzed["rounds"], cases=fuzzed["cases"])))
 
+    # ---- 11. the block-parallel host pipeline
+    piped = check_pipeline(drive, data, streams[0], data[:20 * MiB],
+                           streams[4], x48, s48, main_times, card)
+    t0 = phase("pipeline", t0, json.dumps(piped))
+
+    # ---- 12. K4's schedule sweep
+    swept = check_sweep(drive, dev, card)
+    t0 = phase("sweep", t0, json.dumps(swept))
+
     assert "jax" not in sys.modules
     csrc = "libzling_tpu_torch/csrc/"
     info = {
@@ -1831,7 +2028,8 @@ def main() -> int:
         dict(name=k, route="cuda", source=csrc + info[k][0],
              replaces=info[k][1], launches=launches[k],
              max_abs_err=max(rows[k]["max_abs_err"],
-                             full[k]["max_abs_err"]),
+                             full[k]["max_abs_err"],
+                             swept["max_abs_err"] if k == "tokenize" else 0),
              ms=full[k]["ms"], plain_ms=full[k]["plain_ms"],
              bound_ms=full[k]["bytes"] / HBM_BYTES_PER_S * 1e3,
              bound_by="bytes", library_ms=None)

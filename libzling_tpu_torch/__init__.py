@@ -22,7 +22,10 @@ Command line (``cli.py``; stdin/stdout by default, streaming a group of
 blocks at a time on every visible GPU):
 
     python -m libzling_tpu_torch e0..e6|d [source [target]]
-        [--backend cuda|cpu|native] [--checksum]
+        [--backend cuda|cpu|pipeline|native] [--checksum]
+
+The block-parallel host pipeline (``pipeline.py``, the JAX package's
+default backend) is a host backend, used only where it is named.
 """
 
 from .api import decode, decode_file, encode, encode_file  # noqa: F401

@@ -18,10 +18,11 @@ from .utils.io import FileSink, FileSource, stream_decode, stream_encode
 __all__ = ["encode", "decode", "encode_file", "decode_file"]
 
 # the CLI's backends: the lanes on every visible GPU, the lanes on the CPU
-# (every kernel's plain version), and the port's native engine (one-shot)
-BACKENDS = ("cuda", "cpu", "native")
+# (every kernel's plain version), the port's native engine (one-shot), and
+# the block-parallel host pipeline over that engine (``pipeline.py``)
+BACKENDS = ("cuda", "cpu", "native", "pipeline")
 # backends with a group carry stream at O(group) memory (utils/io.py)
-_STREAMING = ("cuda", "cpu")
+_STREAMING = ("cuda", "cpu", "pipeline")
 
 
 def effective_backend(backend: str | None) -> str:

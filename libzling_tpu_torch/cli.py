@@ -12,9 +12,11 @@ path STREAMS: input goes through the lanes a group of blocks at a time
 per-16 MB-block progress on stderr (DemoActionHandler analog), so a file
 larger than RAM round-trips.  ``--backend`` picks ``cuda`` (the default,
 or LIBZLING_TPU_TORCH_BACKEND: the lanes on every visible GPU), ``cpu``
-(the lanes on the CPU, every kernel's plain version) or ``native`` (the
-port's native engine, one-shot over the whole buffer).  ``cuda`` with no
-GPU is an error, never the CPU.  ``--checksum`` prints the adler32 of the
+(the lanes on the CPU, every kernel's plain version), ``pipeline`` (the
+block-parallel host pipeline, streaming 64 MiB groups as the JAX
+package's default does) or ``native`` (the port's native engine, one-shot
+over the whole buffer).  ``cuda`` with no GPU is an error, never the CPU
+or the host pipeline.  ``--checksum`` prints the adler32 of the
 uncompressed payload, computed incrementally.
 """
 
@@ -42,8 +44,9 @@ usage: python -m libzling_tpu_torch <command> [source [target]] [--backend B] [-
               searches producing smaller, still reference-decodable streams)
   d           decompress
  backends: cuda (default: streaming through the lanes on every visible
-           GPU), cpu (streaming, the kernels' plain versions), native
-           (the host engine; buffers the whole input)
+           GPU), cpu (streaming, the kernels' plain versions), pipeline
+           (streaming, the block-parallel host pipeline), native (the host
+           engine; buffers the whole input)
 """
 
 
@@ -113,17 +116,19 @@ def _run_oneshot(cmd: str, src, dst, checksum: bool) -> None:
         sys.stderr.write(f"adler32: {zlib.adler32(plain):#010x}\n")
 
 
-def _run_streaming(cmd: str, src, dst, devices, checksum: bool) -> None:
-    """The lanes over ``devices``, a group of blocks at a time."""
+def _run_streaming(cmd: str, src, dst, devices, checksum: bool,
+                   route: str) -> None:
+    """The lanes over ``devices`` (or the host pipeline, ``route``), a
+    group of blocks at a time."""
     if cmd == "d":
         plain = _Adler32Sink(dst)
         stream_decode(FileSource(src), plain, devices,
-                      _progress_hooks("decode"))
+                      _progress_hooks("decode"), route=route)
     else:
         level = int(cmd[1]) if len(cmd) == 2 else 0
         plain = _Adler32Source(src)
         stream_encode(plain, FileSink(dst), level, devices,
-                      _progress_hooks("encode"))
+                      _progress_hooks("encode"), route=route)
     if checksum:
         sys.stderr.write(f"adler32: {plain.adler:#010x}\n")
 
@@ -169,7 +174,8 @@ def main(argv: list[str] | None = None) -> int:
 
     try:
         if api.streams_by_default(backend):
-            _run_streaming(cmd, src, dst, devices, checksum)
+            _run_streaming(cmd, src, dst, devices, checksum,
+                           "pipeline" if backend == "pipeline" else "lanes")
         else:
             _run_oneshot(cmd, src, dst, checksum)
         return 0

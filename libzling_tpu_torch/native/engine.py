@@ -14,7 +14,16 @@ The port takes three things from it:
   * ``encode_from``: whole blocks encoded from a carried MTF state and
     level through the engine's split-stage ABI (tokenize with raw
     literals, relabel, entropy-code a chunk) -- the lanes' host re-encode
-    of a failed group (``parallel/mesh.py``, ``elastic``).
+    of a failed group (``parallel/mesh.py``, ``elastic``);
+  * the rest of that ABI (entropy-decode a chunk, the resolver, the
+    match-loop counters) and ``adaptive_drop``, the chunk validation
+    ``encode_from`` and the block-parallel host pipeline
+    (``pipeline.py``) share.
+
+The match-loop counters are compiled out, as the reference builds them,
+unless ``ZLT_COUNTERS=1`` is set when the library is first loaded (the
+JAX package's switch); ``_lib(counters=True)`` loads the counting build
+beside the other.
 """
 
 from __future__ import annotations
@@ -35,26 +44,25 @@ BLOCK_BYTES = 16777216
 _PAYLOAD_MAX = 393216
 STATE_BYTES = 2 * 256 * 256    # MtfState: rank2sym, then sym2rank
 _REPO = pathlib.Path(__file__).resolve().parent.parent.parent
-# the match-loop debug counters compiled out, as the reference builds them
-FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
-         "-DZLT_NOCNT"]
+FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
+NOCNT = "-DZLT_NOCNT"          # the match-loop debug counters compiled out
 _LOCK = threading.Lock()
-_LIB: ctypes.CDLL | None = None
-_ENC = None
-_DEC = None
+_LIBS: dict[bool, ctypes.CDLL] = {}     # by ``counters``
 
 
-def build() -> pathlib.Path:
-    """Compile engine.cpp (if not already built) and return the library."""
+def build(counters: bool = False) -> pathlib.Path:
+    """Compile engine.cpp (if not already built) and return the library;
+    with ``counters`` the match-loop counters are compiled in."""
+    flags = FLAGS if counters else FLAGS + [NOCNT]
     src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     out_dir = _REPO / "build" / "native"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib = out_dir / f"libzlt_torch_{tag}.so"
     if lib.exists():
         return lib
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    r = subprocess.run([os.environ.get("CXX", "g++"), *FLAGS, str(_SRC),
+    r = subprocess.run([os.environ.get("CXX", "g++"), *flags, str(_SRC),
                         "-o", str(tmp)], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"g++ failed on engine.cpp ({r.returncode}):\n"
@@ -63,52 +71,64 @@ def build() -> pathlib.Path:
     return lib
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB, _ENC, _DEC
+def _lib(counters: bool | None = None) -> ctypes.CDLL:
+    """The engine, loaded once a process for each build: ``counters``
+    picks it (None: the one ``ZLT_COUNTERS`` names).  Each library holds
+    its own canonical encoder and decoder handles (``handles``)."""
+    if counters is None:
+        counters = os.environ.get("ZLT_COUNTERS", "") == "1"
     with _LOCK:
-        if _LIB is None:
-            dll = ctypes.CDLL(str(build()))
-            dll.zlt_encoder_new.restype = ctypes.c_void_p
-            dll.zlt_decoder_new.restype = ctypes.c_void_p
-            dll.zlt_encode_with.restype = ctypes.c_longlong
-            dll.zlt_encode_with.argtypes = [
-                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
-                ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t]
-            dll.zlt_decode_with.restype = ctypes.c_longlong
-            dll.zlt_decode_with.argtypes = [
-                ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
-                ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t]
-            dll.zlt_encode_bound.restype = ctypes.c_size_t
-            dll.zlt_encode_bound.argtypes = [ctypes.c_size_t]
-            dll.zlt_decoded_size.restype = ctypes.c_longlong
-            dll.zlt_decoded_size.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
-            dll.zlt_length_tables.restype = None
-            dll.zlt_length_tables.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
-            # the split-stage ABI (engine.cpp: "split-stage pipeline ABI")
-            vp = ctypes.c_void_p
-            for name in ("zlt_tokenizer_new", "zlt_mtf_new"):
-                getattr(dll, name).restype = vp
-                getattr(dll, name).argtypes = []
-            for name in ("zlt_tokenizer_free", "zlt_mtf_free"):
-                getattr(dll, name).restype = None
-                getattr(dll, name).argtypes = [vp]
-            for name in ("zlt_mtf_load", "zlt_mtf_save"):
-                getattr(dll, name).restype = None
-                getattr(dll, name).argtypes = [vp, vp]
-            dll.zlt_tokenize_block_raw.restype = ctypes.c_int
-            dll.zlt_tokenize_block_raw.argtypes = [
-                vp, vp, ctypes.c_int, vp, ctypes.c_int, vp,
-                ctypes.c_longlong, vp, vp]
-            dll.zlt_relabel_block.restype = None
-            dll.zlt_relabel_block.argtypes = [vp, vp, vp, vp, ctypes.c_int]
-            dll.zlt_entropy_encode.restype = ctypes.c_int
-            dll.zlt_entropy_encode.argtypes = [vp, ctypes.c_int, vp]
-            _ENC = dll.zlt_encoder_new()
-            _DEC = dll.zlt_decoder_new()
-            _LIB = dll
-    return _LIB
+        if counters not in _LIBS:
+            dll = _bind(ctypes.CDLL(str(build(counters))))
+            dll.handles = (dll.zlt_encoder_new(), dll.zlt_decoder_new())
+            _LIBS[counters] = dll
+        return _LIBS[counters]
+
+
+def _bind(dll: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the signatures of the functions the port calls."""
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dll.zlt_encoder_new.restype = vp
+    dll.zlt_decoder_new.restype = vp
+    dll.zlt_encode_with.restype = i64
+    dll.zlt_encode_with.argtypes = [
+        vp, ctypes.c_char_p, ctypes.c_size_t, i32,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t]
+    dll.zlt_decode_with.restype = i64
+    dll.zlt_decode_with.argtypes = [
+        vp, ctypes.c_char_p, ctypes.c_size_t,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_size_t]
+    dll.zlt_encode_bound.restype = ctypes.c_size_t
+    dll.zlt_encode_bound.argtypes = [ctypes.c_size_t]
+    dll.zlt_decoded_size.restype = i64
+    dll.zlt_decoded_size.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
+    dll.zlt_length_tables.restype = None
+    dll.zlt_length_tables.argtypes = [vp, i32, i32, i32, vp]
+    # the split-stage ABI (engine.cpp: "split-stage pipeline ABI")
+    for name in ("zlt_tokenizer_new", "zlt_mtf_new", "zlt_resolver_new"):
+        getattr(dll, name).restype = vp
+        getattr(dll, name).argtypes = []
+    for name in ("zlt_tokenizer_free", "zlt_mtf_free", "zlt_mtf_reset",
+                 "zlt_resolver_free", "zlt_resolver_reset_stream",
+                 "zlt_resolver_reset_block", "zlt_counters_reset"):
+        getattr(dll, name).restype = None
+        getattr(dll, name).argtypes = [vp]
+    for name in ("zlt_mtf_load", "zlt_mtf_save", "zlt_resolver_mtf_load",
+                 "zlt_resolver_mtf_save", "zlt_counters"):
+        getattr(dll, name).restype = None
+        getattr(dll, name).argtypes = [vp, vp]
+    dll.zlt_tokenize_block_raw.restype = i32
+    dll.zlt_tokenize_block_raw.argtypes = [
+        vp, vp, i32, vp, i32, vp, i64, vp, vp]
+    dll.zlt_relabel_block.restype = None
+    dll.zlt_relabel_block.argtypes = [vp, vp, vp, vp, i32]
+    dll.zlt_entropy_encode.restype = i32
+    dll.zlt_entropy_encode.argtypes = [vp, i32, vp]
+    dll.zlt_entropy_decode.restype = i32
+    dll.zlt_entropy_decode.argtypes = [vp, i32, i32, vp]
+    dll.zlt_resolve_chunk.restype = i32
+    dll.zlt_resolve_chunk.argtypes = [vp, vp, i32, i32, vp, i32]
+    return dll
 
 
 def length_tables(freqs: np.ndarray, max_codelen: int) -> np.ndarray:
@@ -130,7 +150,8 @@ def encode(data: bytes, level: int = 0) -> bytes:
     cap = dll.zlt_encode_bound(len(data))
     out = (ctypes.c_uint8 * cap)()
     with _LOCK:
-        n = dll.zlt_encode_with(_ENC, data, len(data), level, out, cap)
+        n = dll.zlt_encode_with(dll.handles[0], data, len(data), level,
+                                out, cap)
     if n < 0:
         raise RuntimeError(f"zlt_encode failed ({n})")
     return ctypes.string_at(out, n)
@@ -144,12 +165,43 @@ def decode(data: bytes) -> bytes:
         raise ValueError("zling: corrupt stream (bad framing)")
     out = (ctypes.c_uint8 * max(size, 1))()
     with _LOCK:
-        n = dll.zlt_decode_with(_DEC, data, len(data), out, size)
+        n = dll.zlt_decode_with(dll.handles[1], data, len(data), out, size)
     if n == -1:
         raise ValueError("zling: corrupt stream")
     if n < 0:
         raise RuntimeError(f"zlt_decode failed ({n})")
     return ctypes.string_at(out, n)
+
+
+def adaptive_drop(used, encpos, entry_level: int, level: int, olen
+                  ) -> tuple[list[int], int, int, int]:
+    """The adaptive level drop (src/libzling.cpp:261-266) checked over one
+    block's chunks in order.  Chunk c was tokenized at level ``used[c]``
+    and ends at block position ``encpos[c]``; ``olen(c)`` codes it and
+    gives its payload's size.  A chunk must be coded at the requested
+    ``level`` unless the chunk before it (for the first: ``entry_level``
+    says) compressed its input to more than 95%; then at 0.
+
+    Returns (the payload sizes of the chunks whose level was right, in
+    order; the level the chunk after them must take; the first chunk
+    whose level was wrong, or -1; how many of them dropped the level)."""
+    lvl, prev_end, sizes, drops = entry_level, 0, [], 0
+    for c in range(len(used)):
+        if int(used[c]) != lvl:
+            return sizes, lvl, c, drops
+        n = olen(c)
+        sizes.append(n)
+        lvl = 0 if n / (int(encpos[c]) - prev_end + 1) > 0.95 else level
+        drops += lvl == 0 and level != 0
+        prev_end = int(encpos[c])
+    return sizes, lvl, -1, drops
+
+
+def chunk_header(encpos: int, rlen: int, olen: int) -> bytes:
+    """A chunk's frame before its payload: the continue flag, then its
+    block end position, token count and payload size (big-endian)."""
+    return b"\x01" + encpos.to_bytes(4, "big") + rlen.to_bytes(4, "big") \
+        + olen.to_bytes(4, "big")
 
 
 def encode_from(data: bytes, level: int, state: bytes, entry_level: int,
@@ -209,30 +261,28 @@ def encode_from(data: bytes, level: int, state: bytes, entry_level: int,
                 dll.zlt_relabel_block(mtf, block.ctypes.data,
                                       tokens.ctypes.data, rlens.ctypes.data,
                                       n)
-                body = bytearray()
-                lvl, fix, tpos, prev_end = current, -1, 0, 0
-                for c in range(n):
-                    if int(sched[c]) != lvl:
-                        fix = c
-                        break
-                    rl, ep = int(rlens[c]), int(encpos[c])
-                    olen = dll.zlt_entropy_encode(
-                        tokens.ctypes.data + 2 * tpos, rl,
+                starts = np.concatenate(([0], np.cumsum(rlens[:n])))
+                chunks = []
+
+                def olen(c):
+                    rl = int(rlens[c])
+                    size = dll.zlt_entropy_encode(
+                        tokens.ctypes.data + 2 * int(starts[c]), rl,
                         payload.ctypes.data)
-                    body.append(1)
-                    body += ep.to_bytes(4, "big") + rl.to_bytes(4, "big") \
-                        + olen.to_bytes(4, "big")
-                    body += payload[:olen].tobytes()
-                    lvl = 0 if olen / (ep - prev_end + 1) > 0.95 else level
-                    tpos += rl
-                    prev_end = ep
+                    chunks.append(chunk_header(int(encpos[c]), rl, size)
+                                  + payload[:size].tobytes())
+                    return size
+
+                # coded one chunk at a time: after a wrong level, no more
+                _, lvl, fix, _ = adaptive_drop(sched[:n], encpos, current,
+                                               level, olen)
                 if fix < 0:
                     break
                 # the chunks before ``fix`` stay; it and the rest run at
                 # the level its predecessor left
                 sched[fix:] = lvl
                 dll.zlt_mtf_load(mtf, snapshot.ctypes.data)
-            out += body
+            out += b"".join(chunks)
             out.append(0)
             current = lvl
         dll.zlt_mtf_save(mtf, snapshot.ctypes.data)

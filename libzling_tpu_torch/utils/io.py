@@ -17,7 +17,12 @@ whatever the stream's size:
           K2, which carries the MTF table on the device.
 
 ``devices`` go through ``mesh.make_mesh``: every visible GPU by default,
-``["cpu"]`` for the plain versions.
+``["cpu"]`` for the plain versions.  ``route="pipeline"`` runs the same
+loops through the block-parallel host pipeline (``pipeline.py``) instead,
+as the JAX package's ``utils/io.py`` does: 64 MiB input groups through
+``ParallelEncoder.encode_with_carry``, the same spans through
+``ParallelDecoder.decode_with_carry``, the MTF state and level carried on
+the host.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import time
 from dataclasses import dataclass
 from typing import BinaryIO, Callable
 
+from .. import pipeline
 from ..group_encode import GROUP_BLOCKS
 from ..parallel.decode_mesh import decode_spans
 from ..parallel.mesh import Lanes, encode_groups, make_mesh
@@ -34,6 +40,22 @@ from ..tables import BLOCK_SIZE_HUFFMAN, BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ
 
 DECODE_GROUP_BLOCKS = 4    # decode: max decoded blocks a span
 _DEC_READ = 8 << 20        # decode: compressed read granularity
+PIPELINE_GROUP = 4 * BLOCK_SIZE_IN   # the pipeline route's input groups
+
+
+def check_route(route: str, devices=None, block_size: int = BLOCK_SIZE_IN,
+                max_tokens: int = BLOCK_SIZE_ROLZ) -> None:
+    """Raise ValueError unless ``route`` is ``"lanes"`` or ``"pipeline"``;
+    the pipeline runs on the host at the canonical geometry, so it takes
+    no ``devices`` and no other ``block_size`` or ``max_tokens``."""
+    if route not in ("lanes", "pipeline"):
+        raise ValueError(f"route {route!r}: 'lanes' or 'pipeline'")
+    if route == "pipeline" and (
+            devices is not None
+            or (block_size, max_tokens) != (BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ)):
+        raise ValueError("the pipeline route runs on the host at the "
+                         "canonical geometry: no devices, block_size or "
+                         "max_tokens")
 
 
 class ByteSource:
@@ -134,25 +156,34 @@ def stream_encode(src: ByteSource, dst: ByteSink, level: int = 0,
                   devices=None, hooks: CodecHooks | None = None, *,
                   block_size: int = BLOCK_SIZE_IN,
                   max_tokens: int = BLOCK_SIZE_ROLZ,
-                  blocks_per_device: int = GROUP_BLOCKS) -> tuple[int, int]:
-    """Group-bounded streaming encode through the lanes over ``devices``;
-    the stream is canonical at the given geometry.  Returns (bytes_in,
-    bytes_out)."""
-    lanes = Lanes(make_mesh(devices))
+                  blocks_per_device: int = GROUP_BLOCKS,
+                  route: str = "lanes") -> tuple[int, int]:
+    """Group-bounded streaming encode through the lanes over ``devices``
+    (or, ``route="pipeline"``, the host pipeline); the stream is canonical
+    at the given geometry.  Returns (bytes_in, bytes_out)."""
+    check_route(route, devices, block_size, max_tokens)
+    if route == "lanes":
+        lanes = Lanes(make_mesh(devices))
+        size = lanes.count * blocks_per_device * block_size
+    else:
+        size = PIPELINE_GROUP
     t0 = time.time()
     if hooks and hooks.on_init:
         hooks.on_init()
     sizes = collections.deque()
 
     def groups():
-        for group in read_groups(src, lanes.count * blocks_per_device
-                                 * block_size):
+        for group in read_groups(src, size):
             sizes.append(len(group))
             yield group
 
+    if route == "lanes":
+        parts = encode_groups(groups(), level, lanes, block_size,
+                              max_tokens, blocks_per_device)
+    else:
+        parts = pipeline.encode_groups(groups(), level)
     n_in = n_out = 0
-    for part, _carry in encode_groups(groups(), level, lanes, block_size,
-                                      max_tokens, blocks_per_device):
+    for part, _carry in parts:
         dst.write(part)
         if hooks and hooks.on_block:
             # per-block granularity, as the reference ActionHandler
@@ -209,13 +240,15 @@ def _take_block_spans(buf: bytearray, at_end: bool,
 
 def stream_decode(src: ByteSource, dst: ByteSink, devices=None,
                   hooks: CodecHooks | None = None, *,
-                  group_blocks: int = DECODE_GROUP_BLOCKS) -> tuple[int, int]:
-    """Group-bounded streaming decode through the lanes over ``devices``;
-    raises ValueError on a corrupt or truncated stream.  Returns
-    (bytes_in, bytes_out)."""
+                  group_blocks: int = DECODE_GROUP_BLOCKS,
+                  route: str = "lanes") -> tuple[int, int]:
+    """Group-bounded streaming decode through the lanes over ``devices``
+    (or, ``route="pipeline"``, the host pipeline); raises ValueError on a
+    corrupt or truncated stream.  Returns (bytes_in, bytes_out)."""
     if group_blocks < 1:
         raise ValueError("group_blocks must be >= 1")
-    lanes = Lanes(make_mesh(devices))
+    check_route(route, devices)
+    lanes = Lanes(make_mesh(devices)) if route == "lanes" else None
     t0 = time.time()
     if hooks and hooks.on_init:
         hooks.on_init()
@@ -243,7 +276,9 @@ def stream_decode(src: ByteSource, dst: ByteSink, devices=None,
             raise ValueError("zling: truncated stream (missing stop flag)")
 
     n_consumed = n_out = 0     # compressed bytes decoded, bytes written
-    for part, _table in decode_spans(spans(), lanes):
+    parts = decode_spans(spans(), lanes) if lanes else \
+        pipeline.decode_spans(spans())
+    for part, _table in parts:
         span = taken.popleft()
         dst.write(part)
         if hooks and hooks.on_block:

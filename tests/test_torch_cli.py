@@ -3,8 +3,9 @@ JAX package's (``python -m libzling_tpu``, its default streaming backend),
 run in subprocesses on a ~20 KB file with ``--backend cpu`` (every
 kernel's plain version): the streams, the decoded bytes and the
 ``--checksum`` lines; stdin/stdout; the error exits (bad commands, corrupt
-input, no GPU for ``--backend cuda``); ``--backend native``; the
-environment override.
+input, no GPU for ``--backend cuda``); ``--backend native``; ``--backend
+pipeline`` against the JAX CLI's ``--backend pipeline``; the environment
+override.
 
 Tolerance: exact equality -- streams and outputs are bytes.
 """
@@ -76,6 +77,21 @@ def test_cli_equals_the_jax_cli(blob, tmp_path, cmd):
     assert back.read_bytes() == blob.read_bytes()
     assert _lines(r.stderr, b"adler32:") == _lines(j.stderr, b"adler32:")
     assert _progress(r.stderr) == _progress(j.stderr)
+
+
+def test_cli_pipeline_equals_the_jax_cli_pipeline(blob, tmp_path):
+    mine, theirs, back = tmp_path / "m", tmp_path / "t", tmp_path / "b"
+    r = _port("e3", blob, mine, "--backend", "pipeline", "--checksum")
+    j = _run("libzling_tpu", "e3", blob, theirs, "--backend", "pipeline",
+             "--checksum")
+    assert r.returncode == 0 and j.returncode == 0, (r.stderr, j.stderr)
+    assert mine.read_bytes() == theirs.read_bytes()
+    assert _lines(r.stderr, b"adler32:") == _lines(j.stderr, b"adler32:")
+    assert _progress(r.stderr) == _progress(j.stderr)
+    r = _port("d", mine, back, "--backend", "pipeline", "--checksum")
+    assert r.returncode == 0, r.stderr
+    assert back.read_bytes() == blob.read_bytes()
+    assert _lines(r.stderr, b"adler32:") == _lines(j.stderr, b"adler32:")
 
 
 def test_cli_stdin_stdout(blob):

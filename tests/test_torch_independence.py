@@ -99,6 +99,27 @@ print("libzling_tpu_torch.cli" in sys.modules, bad)
     assert "usage: python -m libzling_tpu_torch" in r.stderr
 
 
+@pytest.mark.parametrize("module", ["pipeline", "probes.sweep_tokenize"])
+def test_the_pipeline_and_the_sweep_load_no_jax_package(module):
+    # each imported alone in a fresh interpreter; the sweep's -h too
+    code = f"""
+import importlib, runpy, sys
+importlib.import_module("libzling_tpu_torch.{module}")
+if "{module}" == "probes.sweep_tokenize":
+    sys.argv = ["sweep", "-h"]
+    try:
+        runpy.run_module("libzling_tpu_torch.{module}", run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+       or k == "libzling_tpu" or k.startswith("libzling_tpu.")]
+print("libzling_tpu_torch.{module}" in sys.modules, bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, check=True, timeout=300, cwd=REPO)
+    assert r.stdout.splitlines()[-1].split() == ["True", "[]"], r.stdout
+
+
 def test_the_fuzz_loads_no_jax_package():
     # ``python -m libzling_tpu_torch.fuzz -h``, then the modules it loaded
     code = """

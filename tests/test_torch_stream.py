@@ -11,7 +11,11 @@ decode_spans``) and checkpoints (``utils/checkpoint.py``), on the CPU
   against ``libzling_tpu.pipeline``'s carry API and ``libzling_tpu.utils.
   io.stream_encode``;
 - the look-ahead's read bound, short groups, corrupt streams (the JAX
-  package's messages), and resumed checkpoints (the JAX package's file).
+  package's messages), and resumed checkpoints (the JAX package's file);
+- the host pipeline's route (``route="pipeline"``) against the JAX
+  package's ``utils/io`` functions over a 64 MiB group edge, with its read
+  bound, and resumable jobs stopped by the JAX package and resumed by the
+  port, and the reverse.
 
 Tolerance: exact equality -- streams, states and outputs are bytes.
 """
@@ -36,6 +40,7 @@ from libzling_tpu_torch.parallel.decode_mesh import decode_spans
 from libzling_tpu_torch.parallel.mesh import Lanes, encode_groups, make_mesh
 from libzling_tpu_torch.utils import checkpoint
 from libzling_tpu_torch.utils.io import (
+    PIPELINE_GROUP,
     ByteSource,
     CodecHooks,
     FileSink,
@@ -73,17 +78,17 @@ def _blob(n: int = 100_000, seed: int = 4) -> bytes:
 
 def _encode(data: bytes, level: int, devices=("cpu",), **kw):
     out, events = io.BytesIO(), []
+    hooks = CodecHooks(on_block=lambda i, o: events.append((i, o)))
     n = stream_encode(FileSource(io.BytesIO(data)), FileSink(out), level,
-                      list(devices), CodecHooks(on_block=lambda i, o:
-                                                events.append((i, o))), **kw)
+                      devices and list(devices), hooks, **kw)
     return out.getvalue(), events, n
 
 
 def _decode(stream: bytes, devices=("cpu",), **kw):
     out, events = io.BytesIO(), []
+    hooks = CodecHooks(on_block=lambda i, o: events.append((i, o)))
     n = stream_decode(FileSource(io.BytesIO(stream)), FileSink(out),
-                      list(devices), CodecHooks(on_block=lambda i, o:
-                                                events.append((i, o))), **kw)
+                      devices and list(devices), hooks, **kw)
     return out.getvalue(), events, n
 
 
@@ -254,8 +259,8 @@ def test_truncated_after_whole_blocks(cut):
         _decode(_spec(2, len(_data()))[:-cut], group_blocks=2)
 
 
-def _crash_after_first(monkeypatch, seen: list):
-    orig = checkpoint._write_ckpt
+def _crash_after_first(monkeypatch, seen: list, module=checkpoint):
+    orig = module._write_ckpt
 
     def crashing(path, kind, in_off, out_off, carry):
         orig(path, kind, in_off, out_off, carry)
@@ -263,7 +268,7 @@ def _crash_after_first(monkeypatch, seen: list):
         if len(seen) == 1:
             raise KeyboardInterrupt
 
-    monkeypatch.setattr(checkpoint, "_write_ckpt", crashing)
+    monkeypatch.setattr(module, "_write_ckpt", crashing)
     return orig
 
 
@@ -332,3 +337,92 @@ def test_file_helpers_stream(tmp_path, monkeypatch):
     assert api.effective_backend("cpu") == "cpu"
     with pytest.raises(ValueError):
         api.effective_backend("tpu")
+
+
+@functools.lru_cache(maxsize=None)
+def _past_a_group() -> bytes:
+    # 1 MiB past the pipeline route's first 64 MiB group: 64 KiB of random
+    # bytes over and over, so each 16 MiB block is one chunk (the JAX
+    # decoder, fed spans of at most 4 blocks, then never holds more chunks
+    # than its 4 token buffers) and the MTF state crosses every edge
+    unit = np.random.default_rng(5).integers(0, 256, 1 << 16, np.uint8)
+    return (unit.tobytes() * 1040)[:PIPELINE_GROUP + (1 << 20)]
+
+
+@functools.lru_cache(maxsize=None)
+def _past_a_group_stream() -> bytes:
+    return pipeline.ParallelEncoder().encode(_past_a_group(), 0)
+
+
+def test_pipeline_route_equals_the_jax_stream_functions():
+    data = _past_a_group()
+    src, read_at_write = _Recorder(data), []
+
+    class Sink(FileSink):
+        def write(self, b: bytes) -> int:
+            read_at_write.append(src.pos)
+            return super().write(b)
+
+    out, events = io.BytesIO(), []
+    n = stream_encode(src, Sink(out), 0, hooks=CodecHooks(
+        on_block=lambda i, o: events.append((i, o))), route="pipeline")
+    jout, jevents = io.BytesIO(), []
+    jio.stream_encode(FileSource(io.BytesIO(data)), jio.FileSink(jout), 0,
+                      hooks=jio.CodecHooks(on_block=lambda i, o:
+                                           jevents.append((i, o))))
+    assert out.getvalue() == jout.getvalue() == _past_a_group_stream()
+    assert events == jevents and len(events) == 5
+    assert n == (len(data), len(out.getvalue()))
+    # a group is read, encoded and written before the next is read
+    assert read_at_write == [PIPELINE_GROUP, len(data)]
+
+    got, events, n = _decode(out.getvalue(), None, route="pipeline")
+    back, jevents = io.BytesIO(), []
+    jio.stream_decode(FileSource(io.BytesIO(out.getvalue())),
+                      jio.FileSink(back), hooks=jio.CodecHooks(
+                          on_block=lambda i, o: jevents.append((i, o))))
+    assert got == back.getvalue() == data
+    assert events == jevents and len(events) == 5
+
+
+def test_the_routes_are_checked():
+    for kw in (dict(route="mesh"), dict(route="pipeline", block_size=4096),
+               dict(route="pipeline", max_tokens=700)):
+        with pytest.raises(ValueError, match="route"):
+            _encode(b"abc", 0, None, **kw)
+    with pytest.raises(ValueError, match="route"):
+        _decode(b"", ["cpu"], route="pipeline")
+    assert _encode(b"", 0, None, route="pipeline")[0] == b""
+    assert _decode(b"", None, route="pipeline")[0] == b""
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_resumable_job_crosses_the_packages(tmp_path, monkeypatch, first):
+    # stopped after its first checkpoint by one package (64 MiB of input,
+    # 4 blocks of the stream), resumed by the other, both directions
+    data, stream = _past_a_group(), _past_a_group_stream()
+    src, dst, back = (tmp_path / n for n in ("in", "out", "back"))
+    src.write_bytes(data)
+    ckpt = str(tmp_path / "ck")
+    jobs = {
+        "jax": (jcheckpoint, lambda: jcheckpoint.encode_file_resumable(
+            str(src), str(dst), 0, ckpt),
+                lambda: jcheckpoint.decode_file_resumable(
+                    str(dst), str(back), ckpt)),
+        "port": (checkpoint, lambda: checkpoint.encode_file_resumable(
+            str(src), str(dst), 0, ckpt, route="pipeline"),
+                 lambda: checkpoint.decode_file_resumable(
+                     str(dst), str(back), ckpt, route="pipeline")),
+    }
+    then = "port" if first == "jax" else "jax"
+    for k in (1, 2):                        # encode, then decode
+        seen = []
+        module = jobs[first][0]
+        orig = _crash_after_first(monkeypatch, seen, module)
+        with pytest.raises(KeyboardInterrupt):
+            jobs[first][k]()
+        monkeypatch.setattr(module, "_write_ckpt", orig)
+        assert seen[0][2] == (PIPELINE_GROUP if k == 1 else 4)
+        jobs[then][k]()
+    assert dst.read_bytes() == stream
+    assert back.read_bytes() == data
