@@ -84,8 +84,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      3-group device memory peak at most 1.1x the window's (O(group));
      ``stream_decode`` one block a span back;
      the resumable encode and decode stopped after their first checkpoint
-     and resumed; the CLI's ``d`` on corrupt input (exit 1, ``error:``).
-     One ``[stream ...]`` line each, with its seconds and MB/s beside the
+     and resumed; the CLI's ``d`` on corrupt input (exit 1, ``error:``;
+     beside ``e4``, three processes side by side).  One ``[stream ...]``
+     line each, with its seconds and MB/s beside the
      card's name and power limit;
   9. the lanes' elastic recovery (``check_elastic``): ``mesh_encode(...,
      elastic=True)`` over the card, one block a group, on the 48 MiB e0
@@ -97,7 +98,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      the host re-encode of the failed 16 MiB block timed; then 64 KiB at
      the small geometry and e4 (the CPU lane's route) against the CPU
      lane's stream (for the recovered group the same code, ``Part`` on the
-     CPU: this run checks the carry and the card's groups); then the same
+     CPU: this run checks the carry and the card's groups) and decoded
+     back to the input by the card's fused and split paths; then the same
      fault without ``elastic``, and a fault of the port's own
      (RuntimeError) with it, which must raise and count nothing.  One
      ``[elastic ...]`` line each;
@@ -120,7 +122,13 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      each row's K4 output on the first 256 KiB of the 2 MiB corpus slice
      equal to its plain version, then the timed rows over the 2 MiB (one
      ``[sweep ...]`` line each: units, ms, ns a unit, the change from the
-     row before) and the engine's match-loop counters at e0.
+     row before) and the engine's match-loop counters at e0;
+  13. the benchmark harness (``check_bench``): ``python -m
+     libzling_tpu_torch.bench`` (``BENCH_ARGS``) in a subprocess with a
+     time limit -- exit 0, a last JSON line with every section and
+     nothing skipped; one ``[bench]`` line with its headline, host table,
+     each path's MB/s, K1-K5's event times with their spreads and the
+     encode and decode stages.
 
 A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K1 and K2 per
 token -- K1 also at e4 and per chunk kind --, K5 per literal of its
@@ -1312,7 +1320,8 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
     O(group)), then ``stream_decode`` one block a span back;
     ``encode_file_resumable`` / ``decode_file_resumable`` stopped after
     their first checkpoint and resumed; the CLI's ``d`` on a truncated
-    stream and on a bad flag byte (exit 1, ``error:``, no traceback).
+    stream and on a bad flag byte (exit 1, ``error:``, no traceback), these
+    two and the ``e4`` through stdin/stdout side by side.
     One ``[stream ...]`` line each, with its seconds and MB/s beside the
     card's name and power limit.  Returns each in-process drive's
     launches."""
@@ -1353,14 +1362,6 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
         assert fh.read() == x32, "CLI d 32 MiB round trip differs"
     assert adler_line(r.stderr) == want_adler
     line("cli d 32 MiB", len(x32), sec, process=True)
-
-    # 2. the CLI through stdin / stdout, e4 on 4 MiB
-    x4 = x32[:4 * MiB]
-    s4 = engine.encode(x4, 4)
-    r, sec = cli("e4", stdin=x4)
-    assert r.returncode == 0, r.stderr.decode()[-4000:]
-    assert r.stdout == s4, "CLI e4 4 MiB (stdin/stdout) != engine"
-    line("cli e4 4 MiB stdin/stdout", len(x4), sec, process=True)
 
     # 3, 4. the streamed encode, one block a group.  A stream's peak is
     # that of its heaviest window of two groups: a group's finish beside
@@ -1414,16 +1415,40 @@ def check_stream(drive, engine, x32: bytes, s32: bytes, x48: bytes,
         line(f"resumable {name} e0 32 MiB, stopped and resumed", n_bytes,
              sec)
 
-    # 6. corrupt input through the CLI
-    for name, bad in (("truncated", s4[:-5]),
-                      ("bad flag byte", b"\x02" + s4[1:])):
-        r, sec = cli("d", stdin=bad)
-        err = r.stderr.decode()
-        assert r.returncode == 1 and "error:" in err \
-            and "Traceback" not in err, f"CLI d {name}: {err[-2000:]}"
-        print(f"[stream cli d {name}] " + json.dumps(dict(
-            card=card, rc=r.returncode, s=sec,
-            error=err.strip().splitlines()[-1])), flush=True)
+    # 2, 6. the CLI through stdin / stdout, e4 on 4 MiB, and on corrupt
+    # input: the three processes side by side
+    x4 = x32[:4 * MiB]
+    s4 = engine.encode(x4, 4)
+    t = time.perf_counter()
+    procs = {name: (args, stdin, subprocess.Popen(
+        [sys.executable, "-m", "libzling_tpu_torch", *args],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, cwd=REPO))
+        for name, args, stdin in (
+            ("e4 4 MiB stdin/stdout", ["e4"], x4),
+            ("d truncated", ["d"], s4[:-5]),
+            ("d bad flag byte", ["d"], b"\x02" + s4[1:]))}
+    try:
+        for name, (args, stdin, p) in procs.items():
+            got, err = p.communicate(stdin, timeout=CLI_S)
+            err = err.decode()
+            sec = time.perf_counter() - t
+            if args == ["e4"]:
+                assert p.returncode == 0, err[-4000:]
+                assert got == s4, "CLI e4 4 MiB (stdin/stdout) != engine"
+                line(f"cli {name}", len(x4), sec, process=True,
+                     side_by_side=True)
+                continue
+            assert p.returncode == 1 and "error:" in err \
+                and "Traceback" not in err, f"CLI {name}: {err[-2000:]}"
+            print(f"[stream cli {name}] " + json.dumps(dict(
+                card=card, rc=p.returncode, s=sec, side_by_side=True,
+                error=err.strip().splitlines()[-1])), flush=True)
+    finally:
+        for _, _, p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     return out
 
 
@@ -1460,9 +1485,9 @@ class PartFaults:
             f.fire(part._group, "dispatch")
             orig["__init__"](part, data, *a, **k)
 
-        def finish(part):
+        def finish(part, *a):
             f.fire(part._group, "finish")
-            return orig["finish"](part)
+            return orig["finish"](part, *a)
 
         def tokenize(part, rows):
             if part.device == f.device:
@@ -1501,7 +1526,9 @@ def check_elastic(drive, x48: bytes, s48: bytes, xs: bytes, card: str,
     ``enc.group_failover``, K4 and K5 queued on the card for groups 0 and
     2, and the host re-encode of the failed 16 MiB block timed; then
     ``xs`` at the small geometry (``SMALL``, level 4, so the CPU lane's
-    ``Part`` route recovers) against the CPU lane's stream; then the same
+    ``Part`` route recovers) against the CPU lane's stream -- for the
+    recovered group that is the code under test, so the stream is also
+    decoded back to ``xs`` by the card's fused and split paths; then the same
     fault without ``elastic``, and a fault of the port's own with it,
     each of which must raise and count nothing.  One ``[elastic ...]``
     line each beside the card's name and power limit.
@@ -1541,6 +1568,12 @@ def check_elastic(drive, x48: bytes, s48: bytes, xs: bytes, card: str,
                     ("tokenize", "relabel"))
             counters = metrics.registry.snapshot()["counters"]
             assert stream == want, f"elastic {name}: stream differs"
+            decoded = []
+            if geom is small:
+                for path, fused in (("fused", True), ("split", False)):
+                    assert z.decode(stream, fused=fused) == x, \
+                        f"elastic {name}: {path} decode differs"
+                    decoded.append(path)
             assert f.fired == 1 and counters.get("enc.group_failover") == 1, \
                 (name, counters)
             last = -(-len(x) // size) - 1
@@ -1553,7 +1586,8 @@ def check_elastic(drive, x48: bytes, s48: bytes, xs: bytes, card: str,
             row = dict(card=card, bytes=len(x), s=sec,
                        MBps=len(x) / sec / 1e6, host_bytes=host_bytes,
                        host_s=host_s, host_MBps=host_bytes / host_s / 1e6,
-                       launches=n, k4_groups=f.k4, counters=counters)
+                       launches=n, k4_groups=f.k4, counters=counters,
+                       decoded_on_the_card=decoded)
             print(f"[elastic {name}] " + json.dumps(row), flush=True)
             out[name] = n
     finally:
@@ -1735,12 +1769,15 @@ def check_pipeline(drive, x32: bytes, s32: bytes, x20: bytes, s20: bytes,
     return out
 
 
+SWEEP_REPS = 2         # phase 12's timed launches a row, after a warm one
+
+
 def check_sweep(drive, dev, card: str) -> dict:
     """Phase 12: K4's schedule sweep (``probes/sweep_tokenize.py``).  Each
     row's K4 output on the slice's first 256 KiB against its plain version
     (exact equality: d1, d2 and d3 are schedules no level reaches), then
-    the timed sweep over the 2 MiB corpus slice, counted, one ``[sweep
-    ...]`` line a row, and the engine's match-loop counters over the same
+    the timed sweep over the 2 MiB corpus slice (best of ``SWEEP_REPS``
+    launches a row), counted, one ``[sweep ...]`` line a row, and the engine's match-loop counters over the same
     slice at e0.  Returns the launches and the largest error."""
     from libzling_tpu_torch.ops import tokenize_kernel as tkk
     from libzling_tpu_torch.probes import sweep_tokenize as sw
@@ -1754,7 +1791,8 @@ def check_sweep(drive, dev, card: str) -> dict:
         errs[name] = max_abs_err(zip(got, want))
     print("[sweep kernel==plain, 256 KiB] " + json.dumps(errs), flush=True)
     assert not any(errs.values()), errs
-    rows, sec, n = drive(lambda: sw.sweep(data, dev), ("tokenize",))
+    rows, sec, n = drive(lambda: sw.sweep(data, dev, SWEEP_REPS),
+                         ("tokenize",))
     for r in rows:
         print(f"[sweep {r['row']}] " + json.dumps(dict(card=card, **r)),
               flush=True)
@@ -1764,6 +1802,65 @@ def check_sweep(drive, dev, card: str) -> dict:
         bytes=len(data), units=nu, counts=counts,
         per_unit={k: v / nu for k, v in counts.items()})), flush=True)
     return dict(launches=n, max_abs_err=max(errs.values()), s=sec)
+
+
+BENCH_S = 240          # phase 13's harness process, at most
+# --host-mb 17: the host input holds a whole 16 MiB block, so the harness
+# gates e6 < e5
+BENCH_ARGS = ["--host-mb", "17", "--device-mb", "16", "--literal-mb", "2",
+              "--repeats", "2"]
+
+
+def check_bench(card: str) -> dict:
+    """Phase 13: ``python -m libzling_tpu_torch.bench`` (``BENCH_ARGS``)
+    in a subprocess with a time limit.  A timeout or a non-zero exit
+    fails; its last line must hold every section and skip none.  One
+    ``[bench]`` line: the headline and host table, each card path's MB/s,
+    K1-K5's CUDA-event ms ({n, min, median}) and the lanes' stages, beside
+    the card's name and power limit.  Returns a summary."""
+    from libzling_tpu_torch import bench
+
+    t = time.perf_counter()
+    try:
+        r = subprocess.run(
+            [sys.executable, "-m", "libzling_tpu_torch.bench", *BENCH_ARGS],
+            capture_output=True, text=True, cwd=REPO, timeout=BENCH_S)
+    except subprocess.TimeoutExpired as e:
+        err = (e.stderr or b"").decode()[-2000:]
+        raise AssertionError(f"the bench did not end within {BENCH_S} s:\n"
+                             f"{err}")
+    sec = time.perf_counter() - t
+    assert r.returncode == 0, (r.returncode, r.stderr[-4000:])
+    got = json.loads(r.stdout.splitlines()[-1])
+    d = got["detail"]
+    c = d["cuda"]
+    assert not d["skipped"] and set(bench.SECTIONS) <= set(c), \
+        (d["skipped"], sorted(c))
+    assert d["machine"]["card"] == card and "native" in d["counters"], d
+    dec, api = c["decode"], c["encode_api"]
+    row = dict(
+        card=card, s=sec, args=BENCH_ARGS, headline=got["value"],
+        corpus=d["corpus"]["sha256"][:16],
+        host={k: dict(enc=v["enc_mbps"], dec=v["dec_mbps"],
+                      bytes=v["bytes"]) for k, v in d["levels"].items()},
+        counters_on_enc=d["counters_on_enc_mbps_e0"],
+        decode_mbps={p: dec[p]["mbps"] for p in ("fused", "split",
+                                                 "groups")},
+        literal_k3_mbps=dec["literal"]["mbps"], encode_mbps=api["mbps"],
+        lanes_mbps=dict(encode=c["lanes"]["encode_mbps"],
+                        decode=c["lanes"]["decode_mbps"]),
+        kernel_ms=dict(
+            tokenize_2MiB=c["tokenize"]["kernel_ms"],
+            tokenize=api["kernel_ms"]["tokenize"],
+            relabel=api["kernel_ms"]["relabel"],
+            decode_fused=dec["fused"]["kernel_ms"]["decode_fused"],
+            entropy_decode=dec["split"]["kernel_ms"]["entropy_decode"],
+            resolve=dec["split"]["kernel_ms"]["resolve"]),
+        encode_stages=c["lanes"]["encode_stage_seconds"],
+        decode_stages=c["lanes"]["decode_stage_seconds"],
+        serial_fraction=c["lanes"]["encode_serial_fraction"])
+    print("[bench] " + json.dumps(row), flush=True)
+    return dict(s=sec, headline=got["value"])
 
 
 def lanes_worker(init: str, rank: str) -> int:
@@ -1982,6 +2079,10 @@ def main() -> int:
     # ---- 12. K4's schedule sweep
     swept = check_sweep(drive, dev, card)
     t0 = phase("sweep", t0, json.dumps(swept))
+
+    # ---- 13. the benchmark harness, in a process of its own
+    benched = check_bench(card)
+    t0 = phase("bench", t0, json.dumps(benched))
 
     assert "jax" not in sys.modules
     csrc = "libzling_tpu_torch/csrc/"

@@ -125,12 +125,17 @@ class Part:
             self.ready.record()
         return state_out
 
-    def finish(self) -> View:
+    def finish(self, mark=None) -> View:
         """Histograms, exact length tables and packing of the last pass;
-        returns the host view without the words (computed once a pass)."""
+        returns the host view without the words (computed once a pass).
+        ``mark``, if given, is called with the name of each stage as it
+        ends: ``gather_freqs`` (the statistics and histograms, fetched),
+        ``length_tables``, ``pack_step`` (codes and packing) and
+        ``gather_pack_meta`` (the bit counts and word offsets, fetched)."""
         if self._view is not None:
             return self._view
         dev = self.device
+        mark = mark or (lambda name: None)
         if self.ready is not None:
             torch.cuda.current_stream(dev).wait_event(self.ready)
         cstat, bstat = self.cstat.cpu().numpy(), self.bstat.cpu().numpy()
@@ -152,19 +157,22 @@ class Part:
         sym = a & 1023
         idx = torch.where(((a >> 10) & 3) == 3, (a >> 14) & 4095, 0)
         freq1, freq2 = hops.unit_histograms(sym, idx, chunk, C)
-        len1 = hops.exact_length_tables(freq1.cpu().numpy(),
-                                        HUFFMAN_MAX_LEN_1)
-        len2 = hops.exact_length_tables(freq2.cpu().numpy(),
-                                        HUFFMAN_MAX_LEN_2)
+        freq1, freq2 = freq1.cpu().numpy(), freq2.cpu().numpy()
+        mark("gather_freqs")
+        len1 = hops.exact_length_tables(freq1, HUFFMAN_MAX_LEN_1)
+        len2 = hops.exact_length_tables(freq2, HUFFMAN_MAX_LEN_2)
+        mark("length_tables")
         l1 = torch.as_tensor(len1.astype(np.int64), device=dev)
         l2 = torch.as_tensor(len2.astype(np.int64), device=dev)
         self.words, bits, word_off = hops.pack_units(
             sym, idx, chunk, l1, hops.canonical_codes(l1, HUFFMAN_MAX_LEN_1),
             l2, hops.canonical_codes(l2, HUFFMAN_MAX_LEN_2))
+        mark("pack_step")
         self._view = View(
             nchunks, np.concatenate([r[:, 1] for r in rows]).astype(np.int64),
             np.concatenate([r[:, 2] for r in rows]).astype(np.int64),
             bits.cpu().numpy(), word_off.cpu().numpy(), len1, len2, None)
+        mark("gather_pack_meta")
         return self._view
 
     def view_with_words(self) -> View:

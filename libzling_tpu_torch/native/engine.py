@@ -5,12 +5,13 @@ The shared library is compiled with ``g++`` on first use into
 flags, so the package needs no install step; the build writes a temp file
 and renames it, so concurrent processes never load a half-written library.
 
-The port takes three things from it:
+The port takes these from it:
 
   * ``length_tables``: exact canonical Huffman code lengths with the
     reference's heap tie-break (``ops/huffman.py::exact_length_tables``);
   * ``encode`` / ``decode``: the canonical host codec, the reference that
-    ``chip_smoke.py`` holds the card's streams to;
+    ``chip_smoke.py`` holds the card's streams to, and ``encode_into`` /
+    ``decode_into``, the same into a caller's writable buffer;
   * ``encode_from``: whole blocks encoded from a carried MTF state and
     level through the engine's split-stage ABI (tokenize with raw
     literals, relabel, entropy-code a chunk) -- the lanes' host re-encode
@@ -171,6 +172,36 @@ def decode(data: bytes) -> bytes:
     if n < 0:
         raise RuntimeError(f"zlt_decode failed ({n})")
     return ctypes.string_at(out, n)
+
+
+def encode_into(data, out, level: int = 0) -> int:
+    """Encode into a caller-provided writable buffer; returns bytes written
+    (the JAX package's ``encode_into``).  A buffer too small raises
+    RuntimeError."""
+    dll = _lib()
+    buf = (ctypes.c_uint8 * len(out)).from_buffer(out)
+    with _LOCK:
+        n = dll.zlt_encode_with(dll.handles[0], bytes(data), len(data),
+                                level, buf, len(out))
+    if n < 0:
+        raise RuntimeError(f"zlt_encode failed ({n})")
+    return n
+
+
+def decode_into(data, out) -> int:
+    """Decode into a caller-provided writable buffer; returns bytes written
+    (the JAX package's ``decode_into``).  A corrupt stream raises
+    ValueError, any other failure RuntimeError."""
+    dll = _lib()
+    buf = (ctypes.c_uint8 * len(out)).from_buffer(out)
+    with _LOCK:
+        n = dll.zlt_decode_with(dll.handles[1], bytes(data), len(data), buf,
+                                len(out))
+    if n == -1:
+        raise ValueError("zling: corrupt stream")
+    if n < 0:
+        raise RuntimeError(f"zlt_decode failed ({n})")
+    return n
 
 
 def adaptive_drop(used, encpos, entry_level: int, level: int, olen

@@ -48,14 +48,20 @@ dispatched, and its entry level -- by the native engine
 does not change, and the next group starts from the host's state back on
 the device, where it must finish: a second failure in a row propagates.
 
+``stage_probe`` (mesh.py:66-88, the JAX ``ZLT_STAGE_PROBE``): a dict
+passed to ``mesh_encode`` receives each stage's wall seconds under the JAX
+stage names, every device synchronised as each stage ends -- a
+measurement mode that serialises the host and the devices.
+
 Not ported: the ``tokenizer="xla"`` twin (its role on the CPU is K4's
-plain version, exact at every level), the chunk-axis bucketing and the
-stage probe, which serve XLA's shapes and the TPU's host link.
+plain version, exact at every level) and the chunk-axis bucketing, which
+serve XLA's shapes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -171,22 +177,27 @@ class Lanes:
 def mesh_encode(data: bytes, level: int, devices=None,
                 block_size: int = BLOCK_SIZE_IN,
                 max_tokens: int = BLOCK_SIZE_ROLZ,
-                blocks_per_device: int = 1, elastic: bool = False) -> bytes:
+                blocks_per_device: int = 1, elastic: bool = False,
+                stage_probe: dict | None = None) -> bytes:
     """Encode with blocks sharded over ``devices`` (``make_mesh``);
     byte-identical to ``spec.encode(data, level, block_size=block_size,
     max_tokens=max_tokens)``.  ``elastic``: a group whose device path
-    fails is encoded again on the host (``encode_groups``)."""
+    fails is encoded again on the host (``encode_groups``).
+    ``stage_probe``: a dict that receives each stage's wall seconds
+    (``encode_groups``); the stream does not change."""
     if level not in LEVEL_PARAMS:
         raise ValueError("level must be 0..6")
     if not data:
         return b""
     return encode_lanes(bytes(data), level, Lanes(make_mesh(devices)),
-                        block_size, max_tokens, blocks_per_device, elastic)
+                        block_size, max_tokens, blocks_per_device, elastic,
+                        stage_probe)
 
 
 def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
                  max_tokens: int, blocks_per_device: int,
-                 elastic: bool = False) -> bytes:
+                 elastic: bool = False,
+                 stage_probe: dict | None = None) -> bytes:
     """The group loop of ``mesh_encode`` over ``lanes``' entries: the
     one-shot case of ``encode_groups``, ``data`` cut into groups of
     ``lanes.count * blocks_per_device`` blocks."""
@@ -198,7 +209,7 @@ def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
 
     return b"".join(out for out, _ in encode_groups(
         groups(), level, lanes, block_size, max_tokens, blocks_per_device,
-        elastic=elastic))
+        elastic=elastic, stage_probe=stage_probe))
 
 
 def host_encode_group(data: bytes, level: int, state: bytes, entry: int,
@@ -232,7 +243,7 @@ class _GroupFailed(Exception):
 def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
                   block_size: int, max_tokens: int, blocks_per_device: int,
                   carry: tuple[torch.Tensor, int] | None = None,
-                  elastic: bool = False
+                  elastic: bool = False, stage_probe: dict | None = None
                   ) -> Iterator[tuple[bytes, tuple[torch.Tensor, int]]]:
     """Encode a stream that arrives a group of blocks at a time.
 
@@ -277,6 +288,30 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     others in it until the process group's timeout; only failures caught
     before the process's next collective are recovered.  Without
     ``elastic`` an exception propagates and no copy is queued.
+
+    ``stage_probe``: a dict to which each stage adds its wall seconds,
+    summed over the groups, with every CUDA device of this process's
+    entries synchronised as the stage ends (a measurement mode: the host
+    waits for the devices, so no look-ahead overlaps; without a dict
+    nothing waits and nothing is timed).  Every stage of the JAX package's
+    probe has its counterpart here, under its name (mesh.py:499-599):
+
+      ``encode_step``       a group's dispatch: its buffers staged, K4 and
+                            the K5 chain queued and run (a look-ahead
+                            dispatched again and a re-run after a fix
+                            too);
+      ``gather_freqs``      ``Part.finish``'s statistics fetched, the
+                            histograms computed and fetched;
+      ``length_tables``     the exact length tables on the host;
+      ``pack_step``         canonical codes and packing on the device;
+      ``gather_pack_meta``  the bit counts and word offsets fetched, then
+                            ``Lanes.gather`` / ``RankLanes.gather`` of the
+                            runs' views;
+      ``validate``          the schedule validation on the host;
+      ``gather_words``      the packed words fetched and gathered;
+      ``frame``             the container framing on the host.
+
+    A group encoded again on the host (``elastic``) adds to no stage.
     """
     if level not in LEVEL_PARAMS:
         raise ValueError("level must be 0..6")
@@ -286,6 +321,25 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     max_chunks = ge.max_chunks_of(block_size, max_tokens)
     G = lanes.count * bpd
     size = G * block_size
+    cuda = {d for d in lanes.devices if d is not None and d.type == "cuda"}
+    t_stage = 0.0
+
+    def start() -> None:
+        """Begin a probed stage."""
+        nonlocal t_stage
+        if stage_probe is not None:
+            t_stage = time.perf_counter()
+
+    def mark(name: str) -> None:
+        """End a probed stage: wait for the devices, add its seconds."""
+        nonlocal t_stage
+        if stage_probe is None:
+            return
+        for d in cuda:
+            torch.cuda.synchronize(d)
+        now = time.perf_counter()
+        stage_probe[name] = stage_probe.get(name, 0.0) + now - t_stage
+        t_stage = now
 
     def guard(cur: dict, step):
         """Run ``step``, this process's part of group ``cur``.  With
@@ -376,6 +430,7 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
         """Launch one group, its blocks numbered from 0 over ``data``,
         from ``state_in`` (on entry ``src_in``'s device; None: on the
         first entry's, or on the CPU)."""
+        start()
         blocks = range(-(-len(data) // block_size))
         runs = [blocks[k:k + bpd] for k in range(0, len(blocks), bpd)]
         sched = np.full((len(blocks), max_chunks), level, np.int32)
@@ -397,6 +452,7 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
                             lanes.devices[i])
 
         launch(cur, setup)
+        mark("encode_step")
         return cur
 
     def finish(cur: dict):
@@ -405,19 +461,29 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
         passes = 0
         while True:
             passes += 1
+            start()
             views = lanes.gather(checked(cur, lambda: {
-                i: p.finish() for i, p in cur["parts"].items()}), cur["n"])
+                i: p.finish(mark) for i, p in cur["parts"].items()}),
+                cur["n"])
+            mark("gather_pack_meta")
             expected, any_fix = checked(cur, lambda: ge.validate(
                 views, cur["sched"], cur["entry"], level))
+            mark("validate")
             if not any_fix:
                 break
+            start()
             launch(cur)
+            mark("encode_step")
         if passes > 1:
             metrics.registry.count("enc.schedule_mispredicts", passes - 1)
+        start()
         views = lanes.gather(checked(cur, lambda: {
             i: p.view_with_words() for i, p in cur["parts"].items()}),
             cur["n"])
-        return checked(cur, lambda: ge.frame(views)), expected, passes == 1
+        mark("gather_words")
+        out = checked(cur, lambda: ge.frame(views))
+        mark("frame")
+        return out, expected, passes == 1
 
     def take(it):
         """The next non-empty group, or None at the end."""

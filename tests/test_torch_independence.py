@@ -120,6 +120,27 @@ print("libzling_tpu_torch.{module}" in sys.modules, bad)
     assert r.stdout.splitlines()[-1].split() == ["True", "[]"], r.stdout
 
 
+def test_the_bench_loads_no_jax_package():
+    # imported, then ``python -m libzling_tpu_torch.bench -h``; the modules
+    # both loaded
+    code = """
+import importlib, runpy, sys
+importlib.import_module("libzling_tpu_torch.bench")
+sys.argv = ["bench", "-h"]
+try:
+    runpy.run_module("libzling_tpu_torch.bench", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+bad = [k for k in sys.modules if k == "jax" or k.startswith("jax.")
+       or k == "libzling_tpu" or k.startswith("libzling_tpu.")]
+print("libzling_tpu_torch.bench" in sys.modules, bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, check=True, timeout=300, cwd=REPO)
+    assert r.stdout.splitlines()[-1].split() == ["True", "[]"], r.stdout
+    assert r.stdout.startswith("usage: python -m libzling_tpu_torch.bench")
+
+
 def test_the_fuzz_loads_no_jax_package():
     # ``python -m libzling_tpu_torch.fuzz -h``, then the modules it loaded
     code = """
@@ -179,6 +200,47 @@ def test_native_engine_equals_the_jax_package(level):
     assert engine.decode(stream) == data
     with pytest.raises(ValueError):
         engine.decode(stream[:-1])
+
+
+@pytest.mark.parametrize("level", [0, 4, 6])
+def test_encode_into_decode_into_equal_the_jax_package(level):
+    data = _mixed(level)
+    cap = engine._lib().zlt_encode_bound(len(data))
+    mine, theirs = bytearray(cap), bytearray(cap)
+    n = engine.encode_into(data, mine, level)
+    assert n == jengine.encode_into(data, theirs, level)
+    assert mine[:n] == theirs[:n] == engine.encode(data, level)
+    out, jout = bytearray(len(data)), bytearray(len(data))
+    assert engine.decode_into(mine[:n], out) \
+        == jengine.decode_into(theirs[:n], jout) == len(data)
+    assert out == jout == data
+
+
+def _raised(fn, *args):
+    try:
+        fn(*args)
+    except Exception as e:        # the type is what the test compares
+        return type(e)
+    return None
+
+
+def test_encode_into_decode_into_fail_as_the_jax_package():
+    data = _mixed(1)
+    stream = engine.encode(data, 1)
+    cases = [
+        # a corrupt stream: truncated, a bad flag, a flipped payload byte
+        ("decode_into", stream[:-1], len(data), ValueError),
+        ("decode_into", b"\x02" + stream[1:], len(data), ValueError),
+        ("decode_into", stream[:400] + bytes([stream[400] ^ 0xFF])
+         + stream[401:], len(data), ValueError),
+        # a buffer too small
+        ("decode_into", stream, 100, RuntimeError),
+        ("encode_into", data, 100, RuntimeError),
+    ]
+    for name, src, size, want in cases:
+        args = (src, bytearray(size)) + ((1,) if name == "encode_into" else ())
+        assert _raised(getattr(engine, name), *args) is want, (name, size)
+        assert _raised(getattr(jengine, name), *args) is want, (name, size)
 
 
 @pytest.mark.parametrize("max_len,n", [(15, 514), (8, 32)])

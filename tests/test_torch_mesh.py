@@ -1,6 +1,6 @@
 """The port's lanes over several devices, on the CPU (every kernel's plain
 version; a device entry is ``"cpu"``): ``mesh_encode`` against
-``spec.encode``, the port's one-device ``encode`` and, on a 2-device CPU
+``spec.encode`` (also with its ``stage_probe``), the port's one-device ``encode`` and, on a 2-device CPU
 mesh, ``libzling_tpu.parallel.mesh.mesh_encode``; ``mesh_decode`` back to
 the data and against ``libzling_tpu.parallel.decode_mesh.mesh_decode``;
 the look-ahead's re-dispatch; corrupt streams; the device checks.
@@ -90,6 +90,25 @@ def test_lookahead_redispatch_keeps_the_bytes(name, redispatch):
     assert counters.get("enc.pipeline_redispatch", 0) == redispatch
     # the drop inside the first group makes its schedule mispredict once
     assert counters.get("enc.schedule_mispredicts", 0) == redispatch
+
+
+ENCODE_STAGES = {"encode_step", "gather_freqs", "length_tables",
+                 "pack_step", "gather_pack_meta", "validate",
+                 "gather_words", "frame"}
+
+
+@pytest.mark.parametrize("name,D", [("ends in noise", 2), ("text", 1),
+                                    ("text", 3)])
+def test_stage_probe_keeps_the_bytes_and_names_the_stages(name, D):
+    # "ends in noise": a mispredict re-runs a group and re-dispatches the
+    # look-ahead, both timed as encode_step
+    data = _ends_in_noise() if name == "ends in noise" else _data()
+    want = mesh_encode(data, 2, ["cpu"] * D, **GEOM)
+    probe: dict = {}
+    got = mesh_encode(data, 2, ["cpu"] * D, stage_probe=probe, **GEOM)
+    assert got == want == spec.encode(data, 2, **GEOM)
+    assert set(probe) == ENCODE_STAGES
+    assert all(v >= 0 for v in probe.values()), probe
 
 
 @pytest.mark.parametrize("gb", [1, 2])
