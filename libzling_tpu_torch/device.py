@@ -13,6 +13,9 @@ Counterpart of ``libzling_tpu/device.py`` (``encode``, ``decode``).
       pair: K1 decodes every chunk to tokens, one CTA per chunk, and K2
       resolves them (``group_decode.py`` with one group); the per-chunk
       statuses turn into ``ValueError`` on a corrupt stream.
+
+Each call is the span ``zling.encode`` or ``zling.decode``
+(``utils/metrics.stage``), its stages' spans nested in it.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from . import group_decode
 from .group_encode import GROUP_BLOCKS
 from .ops import decode_fused as fk
 from .parallel.mesh import mesh_encode
+from .utils import metrics
 
 
 def resolve_device(device) -> torch.device:
@@ -41,9 +45,10 @@ def encode(data: bytes, level: int = 0, device="cuda",
            max_tokens: int = BLOCK_SIZE_ROLZ) -> bytes:
     """Encode on ``device``; byte-identical to ``spec.encode`` at the same
     geometry (the canonical stream by default)."""
-    return mesh_encode(data, level, [resolve_device(device)],
-                       block_size=block_size, max_tokens=max_tokens,
-                       blocks_per_device=GROUP_BLOCKS)
+    with metrics.stage("encode"):
+        return mesh_encode(data, level, [resolve_device(device)],
+                           block_size=block_size, max_tokens=max_tokens,
+                           blocks_per_device=GROUP_BLOCKS)
 
 
 def decode_args(data: bytes, device):
@@ -67,16 +72,19 @@ def decode(data: bytes, device="cuda", fused: bool = True) -> bytes:
     ``fused=False`` runs the split pair K1 -> K2 instead of K3; the two
     differ only on corrupt input, as the JAX package's two layouts do.
     """
-    dev = resolve_device(device)
-    data = bytes(data)
-    if not fused:
-        return group_decode.decode_groups(data, dev, group_blocks=None)
-    staged = decode_args(data, dev) if data else None
-    if staged is None:
-        return b""
-    args, size, rlens = staged
-    out, status = fk.fused_decode(*args, out_size=size)
-    st = status.cpu().numpy()
-    if st[:, 2].any() or (st[:, 1] != rlens).any():
-        raise ValueError("zling: corrupt stream")
-    return out.cpu().numpy().tobytes()
+    with metrics.stage("decode"):
+        dev = resolve_device(device)
+        data = bytes(data)
+        if not fused:
+            return group_decode.decode_groups(data, dev, group_blocks=None)
+        staged = decode_args(data, dev) if data else None
+        if staged is None:
+            return b""
+        args, size, rlens = staged
+        out, status = fk.fused_decode(*args, out_size=size)
+        with metrics.stage("dec.status"):
+            st = status.cpu().numpy()
+            if st[:, 2].any() or (st[:, 1] != rlens).any():
+                raise ValueError("zling: corrupt stream")
+        with metrics.stage("dec.fetch"):
+            return out.cpu().numpy().tobytes()

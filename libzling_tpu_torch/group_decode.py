@@ -27,6 +27,7 @@ import numpy as np
 
 from . import container
 from .ops import entropy_kernel as ek
+from .utils import metrics
 
 
 class Stream(NamedTuple):
@@ -77,16 +78,17 @@ class Stream(NamedTuple):
 
 def parse(data: bytes) -> Stream | None:
     """Parse a stream on the host; None when it holds no chunk."""
-    chunks, block_sizes = container.parse(data)
-    if not chunks:
-        return None
-    len1, len2, bodies, rlens = container.unpack_length_tables(chunks)
-    block_id = np.asarray([ch.block_id for ch in chunks], np.int64)
-    new_block = np.r_[1, block_id[1:] != block_id[:-1]].astype(np.int32)
-    return Stream(len1, len2, bodies, np.asarray(rlens, np.int64),
-                  np.asarray([ch.encpos for ch in chunks], np.int64),
-                  block_id, new_block,
-                  np.cumsum([0] + list(block_sizes)).astype(np.int64))
+    with metrics.stage("dec.parse"):
+        chunks, block_sizes = container.parse(data)
+        if not chunks:
+            return None
+        len1, len2, bodies, rlens = container.unpack_length_tables(chunks)
+        block_id = np.asarray([ch.block_id for ch in chunks], np.int64)
+        new_block = np.r_[1, block_id[1:] != block_id[:-1]].astype(np.int32)
+        return Stream(len1, len2, bodies, np.asarray(rlens, np.int64),
+                      np.asarray([ch.encpos for ch in chunks], np.int64),
+                      block_id, new_block,
+                      np.cumsum([0] + list(block_sizes)).astype(np.int64))
 
 
 def decode_groups(data: bytes, device="cuda", group_blocks: int | None = 1,

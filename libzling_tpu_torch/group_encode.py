@@ -52,6 +52,7 @@ from .ops import huffman as hops
 from .ops import relabel_kernel as rlk
 from .ops import tokenize_kernel as tkk
 from .ops.entropy_kernel import host_to
+from .utils import metrics
 
 GROUP_BLOCKS = 8
 
@@ -107,72 +108,85 @@ class Part:
 
     def tokenize(self, rows: np.ndarray) -> None:
         """Launch K4 under the per-chunk level rows [blocks, max_chunks]."""
-        self.units, _upos, self.cstat, self.bstat = tkk.tokenize(
-            self.buf, self.block_off, self.block_len, self.block_off,
-            tkk.level_params(rows, self.device), self.max_tokens,
-            self.n_units)
+        with metrics.stage("enc.tokenize"):
+            self.units, _upos, self.cstat, self.bstat = tkk.tokenize(
+                self.buf, self.block_off, self.block_len, self.block_off,
+                tkk.level_params(rows, self.device), self.max_tokens,
+                self.n_units)
         self._view = None
 
     def relabel(self, state: torch.Tensor) -> torch.Tensor:
         """Launch K5 from ``state`` (on this device); returns the exit
         state.  Marks the point ``finish`` waits for."""
-        self.relabeled, state_out = rlk.relabel(
-            self.units, self.block_off, self.cstat[:, :, 0].sum(1), state,
-            self.nxt)
-        self.ready = None
-        if self.device.type == "cuda":
-            self.ready = torch.cuda.Event()
-            self.ready.record()
+        with metrics.stage("enc.relabel"):
+            self.relabeled, state_out = rlk.relabel(
+                self.units, self.block_off, self.cstat[:, :, 0].sum(1),
+                state, self.nxt)
+            self.ready = None
+            if self.device.type == "cuda":
+                self.ready = torch.cuda.Event()
+                self.ready.record()
         return state_out
 
-    def finish(self, mark=None) -> View:
+    def finish(self, probe: dict | None = None, sync=()) -> View:
         """Histograms, exact length tables and packing of the last pass;
         returns the host view without the words (computed once a pass).
-        ``mark``, if given, is called with the name of each stage as it
-        ends: ``gather_freqs`` (the statistics and histograms, fetched),
+        Its stages are ``metrics.stage`` spans, timed into ``probe`` (the
+        encode stage probe; ``sync``: the devices it synchronises):
+        ``gather_freqs`` (the statistics and histograms, fetched; within
+        it ``enc.wait``, the host waiting for K4 and K5),
         ``length_tables``, ``pack_step`` (codes and packing) and
         ``gather_pack_meta`` (the bit counts and word offsets, fetched)."""
         if self._view is not None:
             return self._view
         dev = self.device
-        mark = mark or (lambda name: None)
-        if self.ready is not None:
-            torch.cuda.current_stream(dev).wait_event(self.ready)
-        cstat, bstat = self.cstat.cpu().numpy(), self.bstat.cpu().numpy()
-        if bstat[:, 1].any():
-            raise RuntimeError("tokenize: a block did not fit max_chunks")
-        nchunks = bstat[:, 0].astype(np.int64)
-        rows = [cstat[d, :nc] for d, nc in enumerate(nchunks)]
-        nunits = np.concatenate([r[:, 0] for r in rows]).astype(np.int64)
-        cnt = cstat[:, :, 0].sum(1)
 
-        # the run's valid units in (block, chunk) order: each block's
-        # chunks lie back to back from its offset
-        a = torch.cat([self.relabeled[o:o + n]
-                       for o, n in zip(self.offs, cnt.tolist())])
-        a = a.to(torch.int64)
-        C = len(nunits)
-        chunk = torch.repeat_interleave(torch.arange(C, device=dev),
-                                        torch.as_tensor(nunits, device=dev))
-        sym = a & 1023
-        idx = torch.where(((a >> 10) & 3) == 3, (a >> 14) & 4095, 0)
-        freq1, freq2 = hops.unit_histograms(sym, idx, chunk, C)
-        freq1, freq2 = freq1.cpu().numpy(), freq2.cpu().numpy()
-        mark("gather_freqs")
-        len1 = hops.exact_length_tables(freq1, HUFFMAN_MAX_LEN_1)
-        len2 = hops.exact_length_tables(freq2, HUFFMAN_MAX_LEN_2)
-        mark("length_tables")
-        l1 = torch.as_tensor(len1.astype(np.int64), device=dev)
-        l2 = torch.as_tensor(len2.astype(np.int64), device=dev)
-        self.words, bits, word_off = hops.pack_units(
-            sym, idx, chunk, l1, hops.canonical_codes(l1, HUFFMAN_MAX_LEN_1),
-            l2, hops.canonical_codes(l2, HUFFMAN_MAX_LEN_2))
-        mark("pack_step")
-        self._view = View(
-            nchunks, np.concatenate([r[:, 1] for r in rows]).astype(np.int64),
-            np.concatenate([r[:, 2] for r in rows]).astype(np.int64),
-            bits.cpu().numpy(), word_off.cpu().numpy(), len1, len2, None)
-        mark("gather_pack_meta")
+        def span(name):
+            return metrics.stage("enc." + name, probe, None, sync)
+
+        with span("gather_freqs"):
+            if self.ready is not None:
+                torch.cuda.current_stream(dev).wait_event(self.ready)
+            with metrics.stage("enc.wait"):
+                cstat, bstat = self.cstat.cpu().numpy(), \
+                    self.bstat.cpu().numpy()
+            if bstat[:, 1].any():
+                raise RuntimeError("tokenize: a block did not fit max_chunks")
+            nchunks = bstat[:, 0].astype(np.int64)
+            rows = [cstat[d, :nc] for d, nc in enumerate(nchunks)]
+            nunits = np.concatenate([r[:, 0] for r in rows]).astype(np.int64)
+            cnt = cstat[:, :, 0].sum(1)
+
+            # the run's valid units in (block, chunk) order: each block's
+            # chunks lie back to back from its offset
+            a = torch.cat([self.relabeled[o:o + n]
+                           for o, n in zip(self.offs, cnt.tolist())])
+            a = a.to(torch.int64)
+            C = len(nunits)
+            chunk = torch.repeat_interleave(
+                torch.arange(C, device=dev),
+                torch.as_tensor(nunits, device=dev))
+            sym = a & 1023
+            idx = torch.where(((a >> 10) & 3) == 3, (a >> 14) & 4095, 0)
+            freq1, freq2 = hops.unit_histograms(sym, idx, chunk, C)
+            freq1, freq2 = freq1.cpu().numpy(), freq2.cpu().numpy()
+        with span("length_tables"):
+            len1 = hops.exact_length_tables(freq1, HUFFMAN_MAX_LEN_1)
+            len2 = hops.exact_length_tables(freq2, HUFFMAN_MAX_LEN_2)
+        with span("pack_step"):
+            l1 = torch.as_tensor(len1.astype(np.int64), device=dev)
+            l2 = torch.as_tensor(len2.astype(np.int64), device=dev)
+            self.words, bits, word_off = hops.pack_units(
+                sym, idx, chunk, l1,
+                hops.canonical_codes(l1, HUFFMAN_MAX_LEN_1),
+                l2, hops.canonical_codes(l2, HUFFMAN_MAX_LEN_2))
+        with span("gather_pack_meta"):
+            self._view = View(
+                nchunks,
+                np.concatenate([r[:, 1] for r in rows]).astype(np.int64),
+                np.concatenate([r[:, 2] for r in rows]).astype(np.int64),
+                bits.cpu().numpy(), word_off.cpu().numpy(), len1, len2,
+                None)
         return self._view
 
     def view_with_words(self) -> View:

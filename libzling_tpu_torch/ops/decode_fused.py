@@ -46,6 +46,7 @@ import torch
 from . import mtf as mops
 from .entropy_kernel import M32, host_to, stage_chunks, tier_lookup
 from .resolve_kernel import RING, Resolver
+from ..utils import metrics
 
 
 def prepare_fused(len1, len2, payloads, rlens, encpos, new_block, out_base,
@@ -57,13 +58,14 @@ def prepare_fused(len1, len2, payloads, rlens, encpos, new_block, out_base,
     of the chunk's block in the output.  Returns the argument tuple of
     ``fused_decode`` (without ``out_size``).
     """
-    meta, order1, lut1, lut2, words, _, _ = stage_chunks(
-        len1, len2, payloads, rlens, device)
-    meta[:, 0, 3] = host_to(np.asarray(encpos, np.int32), device)
-    meta[:, 0, 4] = host_to(np.asarray(new_block, np.int32), device)
-    return (meta, order1, lut1, lut2, mops.initial_table(device),
-            mops.mtf_next(device), words,
-            host_to(np.asarray(out_base, np.int64), device))
+    with metrics.stage("dec.stage"):
+        meta, order1, lut1, lut2, words, _, _ = stage_chunks(
+            len1, len2, payloads, rlens, device)
+        meta[:, 0, 3] = host_to(np.asarray(encpos, np.int32), device)
+        meta[:, 0, 4] = host_to(np.asarray(new_block, np.int32), device)
+        return (meta, order1, lut1, lut2, mops.initial_table(device),
+                mops.mtf_next(device), words,
+                host_to(np.asarray(out_base, np.int64), device))
 
 
 def fused_decode(meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base,
@@ -72,38 +74,42 @@ def fused_decode(meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base,
 
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     """
-    if meta.device.type == "cpu":
-        return fused_decode_plain(meta, order1, lut1, lut2, mtf0, mtfnext,
-                                  words, out_base, out_size)
-    if meta.device.type != "cuda":
-        raise ValueError(f"fused_decode: unsupported device {meta.device}")
-    from .. import _build
+    with metrics.stage("dec.k3"):
+        if meta.device.type == "cpu":
+            return fused_decode_plain(meta, order1, lut1, lut2, mtf0,
+                                      mtfnext, words, out_base, out_size)
+        if meta.device.type != "cuda":
+            raise ValueError(
+                f"fused_decode: unsupported device {meta.device}")
+        from .. import _build
 
-    C = meta.shape[0]
-    args = (meta, order1, lut1, lut2, words)
-    for a in args:
-        if a.dtype != torch.int32 or not a.is_contiguous():
-            raise ValueError("fused_decode: int32 contiguous tables expected")
-    if mtf0.dtype != torch.uint8 or mtf0.shape != (256, 256):
-        raise ValueError("fused_decode: mtf0 must be u8 [256, 256]")
-    dev = meta.device
-    _build.check_devices("fused_decode", dev, direct=args + (mtf0,),
-                         copied=(mtfnext, out_base))
-    with torch.cuda.device(dev):
-        mtfnext = mtfnext.to(dev, torch.int32).contiguous()
-        out_base = out_base.to(dev, torch.int64).contiguous()
-        mtf0 = mtf0.contiguous().clone()          # 16-byte aligned copy
-        out = torch.zeros(max(out_size, 1), dtype=torch.uint8, device=dev)
-        ring = torch.empty(256 * RING, dtype=torch.int32, device=dev)
-        status = torch.empty((C, 4), dtype=torch.int32, device=dev)
-        err = _build.lib().zlt_decode_fused(
-            meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(),
-            lut2.data_ptr(), mtf0.data_ptr(), mtfnext.data_ptr(),
-            words.data_ptr(), out_base.data_ptr(), C, out.data_ptr(),
-            ring.data_ptr(), status.data_ptr(), _build.stream_ptr(meta))
-    _build.check(err, "zlt_decode_fused")
-    fused_decode.launches += 1
-    return out[:out_size], status
+        C = meta.shape[0]
+        args = (meta, order1, lut1, lut2, words)
+        for a in args:
+            if a.dtype != torch.int32 or not a.is_contiguous():
+                raise ValueError(
+                    "fused_decode: int32 contiguous tables expected")
+        if mtf0.dtype != torch.uint8 or mtf0.shape != (256, 256):
+            raise ValueError("fused_decode: mtf0 must be u8 [256, 256]")
+        dev = meta.device
+        _build.check_devices("fused_decode", dev, direct=args + (mtf0,),
+                             copied=(mtfnext, out_base))
+        with torch.cuda.device(dev):
+            mtfnext = mtfnext.to(dev, torch.int32).contiguous()
+            out_base = out_base.to(dev, torch.int64).contiguous()
+            mtf0 = mtf0.contiguous().clone()          # 16-byte aligned copy
+            out = torch.zeros(max(out_size, 1), dtype=torch.uint8,
+                              device=dev)
+            ring = torch.empty(256 * RING, dtype=torch.int32, device=dev)
+            status = torch.empty((C, 4), dtype=torch.int32, device=dev)
+            err = _build.lib().zlt_decode_fused(
+                meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(),
+                lut2.data_ptr(), mtf0.data_ptr(), mtfnext.data_ptr(),
+                words.data_ptr(), out_base.data_ptr(), C, out.data_ptr(),
+                ring.data_ptr(), status.data_ptr(), _build.stream_ptr(meta))
+        _build.check(err, "zlt_decode_fused")
+        fused_decode.launches += 1
+        return out[:out_size], status
 
 
 fused_decode.launches = 0

@@ -28,7 +28,6 @@ process, the tokens all-gathered and K2 replicated on every process.
 
 from __future__ import annotations
 
-import time
 from typing import Iterable, Iterator
 
 import torch
@@ -37,6 +36,7 @@ from .. import group_decode as gd
 from ..ops import entropy_kernel as ek
 from ..ops import mtf as mops
 from ..ops import resolve_kernel as rk
+from ..utils import metrics
 from .mesh import Lanes, make_mesh
 
 
@@ -50,7 +50,9 @@ def mesh_decode(data: bytes, devices=None, group_blocks: int | None = 1,
     (staging, table build and K1 on every device), ``gather_s`` (the
     tokens to device 0) and ``resolve_s`` (K2), summed over the groups,
     with every device synchronised after each stage -- a measurement mode
-    that serialises the host and the devices.
+    that serialises the host and the devices.  The same stages are the
+    spans ``zling.dec.entropy``, ``dec.gather`` and ``dec.resolve``
+    (``utils/metrics.stage``), then ``dec.collect``, whether probed or not.
     """
     return decode_lanes(data, Lanes(make_mesh(devices)), group_blocks,
                         stage_probe)
@@ -110,14 +112,8 @@ def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
     D = lanes.count
     cuda = {d for d in lanes.devices if d is not None and d.type == "cuda"}
 
-    def mark(key: str, t0: float) -> float:
-        if stage_probe is None:
-            return t0
-        for d in cuda:
-            torch.cuda.synchronize(d)
-        now = time.perf_counter()
-        stage_probe[key] = stage_probe.get(key, 0.0) + now - t0
-        return now
+    def span(name: str, key: str):
+        return metrics.stage(name, stage_probe, key, cuda)
 
     mtf = mtf0
     pending = []
@@ -128,32 +124,32 @@ def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
         cd = -(-(c1 - c0) // D)
         runs = [(min(c0 + i * cd, c1), min(c0 + (i + 1) * cd, c1))
                 for i in range(D)]
-        t0 = time.perf_counter()
-        k1out = {}
-        for i in lanes.entries:
-            a, b = runs[i]
-            if a < b:
-                k1out[i] = ek.decode_chunks(*ek.stage_chunks(
-                    s.len1[a:b], s.len2[a:b], s.bodies[a:b], s.rlens[a:b],
-                    lanes.devices[i]))
-        t0 = mark("entropy_s", t0)
-        tokens, estatus = lanes.gather_tokens(k1out, runs, s.rlens)
-        t0 = mark("gather_s", t0)
-        out, rstatus, mtf = rk.resolve_stream(
-            tokens, *s.resolve_args(c0, c1, lanes.resolve_device), mtf)
-        mark("resolve_s", t0)
+        with span("dec.entropy", "entropy_s"):
+            k1out = {}
+            for i in lanes.entries:
+                a, b = runs[i]
+                if a < b:
+                    k1out[i] = ek.decode_chunks(*ek.stage_chunks(
+                        s.len1[a:b], s.len2[a:b], s.bodies[a:b],
+                        s.rlens[a:b], lanes.devices[i]))
+        with span("dec.gather", "gather_s"):
+            tokens, estatus = lanes.gather_tokens(k1out, runs, s.rlens)
+        with span("dec.resolve", "resolve_s"):
+            out, rstatus, mtf = rk.resolve_stream(
+                tokens, *s.resolve_args(c0, c1, lanes.resolve_device), mtf)
         pending.append((estatus, rstatus, out, s.rlens[c0:c1]))
     return pending, mtf
 
 
 def collect(pending) -> bytes:
     """Fetch and check every group's statuses and bytes, in order."""
-    parts = []
-    for estatus, rstatus, out, rlens in pending:
-        est = estatus.cpu().numpy()
-        if est[:, 2].any() or (est[:, 0] != rlens).any():
-            raise ValueError("zling: corrupt stream (huffman)")
-        if rstatus.cpu().numpy()[:, 2].any():
-            raise ValueError("zling: corrupt stream (resolve)")
-        parts.append(out.cpu().numpy().tobytes())
-    return b"".join(parts)
+    with metrics.stage("dec.collect"):
+        parts = []
+        for estatus, rstatus, out, rlens in pending:
+            est = estatus.cpu().numpy()
+            if est[:, 2].any() or (est[:, 0] != rlens).any():
+                raise ValueError("zling: corrupt stream (huffman)")
+            if rstatus.cpu().numpy()[:, 2].any():
+                raise ValueError("zling: corrupt stream (resolve)")
+            parts.append(out.cpu().numpy().tobytes())
+        return b"".join(parts)

@@ -48,10 +48,12 @@ dispatched, and its entry level -- by the native engine
 does not change, and the next group starts from the host's state back on
 the device, where it must finish: a second failure in a row propagates.
 
-``stage_probe`` (mesh.py:66-88, the JAX ``ZLT_STAGE_PROBE``): a dict
-passed to ``mesh_encode`` receives each stage's wall seconds under the JAX
-stage names, every device synchronised as each stage ends -- a
-measurement mode that serialises the host and the devices.
+Each stage is a span (``utils/metrics.stage``, ``zling.enc.*``) on the
+profiler's timeline, which waits for nothing.  ``stage_probe`` (mesh.py:
+66-88, the JAX ``ZLT_STAGE_PROBE``): a dict passed to ``mesh_encode``
+receives the same stages' wall seconds under the JAX stage names, every
+device synchronised as each stage ends -- a measurement mode that
+serialises the host and the devices.
 
 Not ported: the ``tokenizer="xla"`` twin (its role on the CPU is K4's
 plain version, exact at every level) and the chunk-axis bucketing, which
@@ -61,7 +63,6 @@ serve XLA's shapes.
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -289,6 +290,14 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     before the process's next collective are recovered.  Without
     ``elastic`` an exception propagates and no copy is queued.
 
+    Every stage is a span (``metrics.stage``): ``zling.enc.dispatch``
+    (within it ``enc.launch``, one K4 + K5 pass, and ``enc.stage``, the
+    runs' buffers), ``enc.launch`` alone for a re-run after a fix,
+    ``enc.failover``, and the stages below as ``zling.enc.<stage>``
+    (``Part.finish`` adds ``enc.wait``, ``Part.tokenize`` /
+    ``Part.relabel`` ``enc.tokenize`` / ``enc.relabel``).  No span stays
+    open across the ``yield``.
+
     ``stage_probe``: a dict to which each stage adds its wall seconds,
     summed over the groups, with every CUDA device of this process's
     entries synchronised as the stage ends (a measurement mode: the host
@@ -296,10 +305,10 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     nothing waits and nothing is timed).  Every stage of the JAX package's
     probe has its counterpart here, under its name (mesh.py:499-599):
 
-      ``encode_step``       a group's dispatch: its buffers staged, K4 and
-                            the K5 chain queued and run (a look-ahead
-                            dispatched again and a re-run after a fix
-                            too);
+      ``encode_step``       a group's dispatch (``enc.dispatch``): its
+                            buffers staged, K4 and the K5 chain queued and
+                            run (a look-ahead dispatched again and a
+                            re-run after a fix, ``enc.launch``, too);
       ``gather_freqs``      ``Part.finish``'s statistics fetched, the
                             histograms computed and fetched;
       ``length_tables``     the exact length tables on the host;
@@ -322,24 +331,10 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     G = lanes.count * bpd
     size = G * block_size
     cuda = {d for d in lanes.devices if d is not None and d.type == "cuda"}
-    t_stage = 0.0
 
-    def start() -> None:
-        """Begin a probed stage."""
-        nonlocal t_stage
-        if stage_probe is not None:
-            t_stage = time.perf_counter()
-
-    def mark(name: str) -> None:
-        """End a probed stage: wait for the devices, add its seconds."""
-        nonlocal t_stage
-        if stage_probe is None:
-            return
-        for d in cuda:
-            torch.cuda.synchronize(d)
-        now = time.perf_counter()
-        stage_probe[name] = stage_probe.get(name, 0.0) + now - t_stage
-        t_stage = now
+    def span(name: str, key: str | None = None):
+        """A probed stage of the group loop (``metrics.stage``)."""
+        return metrics.stage(name, stage_probe, key, cuda)
 
     def guard(cur: dict, step):
         """Run ``step``, this process's part of group ``cur``.  With
@@ -397,10 +392,12 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
             done.synchronize()
             cur["snap"] = host
 
-    def launch(cur: dict, setup=None) -> None:
+    def launch(cur: dict, setup=None, probe=None) -> None:
         """Queue every local run's K4 (after ``setup``), then the K5 chain
         over the runs.  A K5 that fails hands its input state on, so that
-        the chain's collectives pair up, and raises at the chain's end."""
+        the chain's collectives pair up, and raises at the chain's end.
+        ``probe``: the stage probe, where the pass is not part of a
+        dispatch."""
         def tokenize():
             if setup is not None:
                 setup()
@@ -423,14 +420,14 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
             if err is not None:
                 raise err
 
-        guard(cur, tokenize)
-        guard(cur, chain)
+        with metrics.stage("enc.launch", probe, "encode_step", cuda):
+            guard(cur, tokenize)
+            guard(cur, chain)
 
     def dispatch(data, entry: int, state_in, src_in) -> dict:
         """Launch one group, its blocks numbered from 0 over ``data``,
         from ``state_in`` (on entry ``src_in``'s device; None: on the
         first entry's, or on the CPU)."""
-        start()
         blocks = range(-(-len(data) // block_size))
         runs = [blocks[k:k + bpd] for k in range(0, len(blocks), bpd)]
         sched = np.full((len(blocks), max_chunks), level, np.int32)
@@ -441,18 +438,19 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
         def setup():
             if elastic:
                 snapshot(cur)
-            if src_in is None:
-                cur["state_in"] = state_in.to(
-                    lanes.devices[lanes.entries[0]])
-            for i in lanes.entries:
-                if i < len(runs):
-                    with lanes.on(i):
-                        cur["parts"][i] = ge.Part(
-                            data, runs[i], block_size, max_tokens,
-                            lanes.devices[i])
+            with metrics.stage("enc.stage"):
+                if src_in is None:
+                    cur["state_in"] = state_in.to(
+                        lanes.devices[lanes.entries[0]])
+                for i in lanes.entries:
+                    if i < len(runs):
+                        with lanes.on(i):
+                            cur["parts"][i] = ge.Part(
+                                data, runs[i], block_size, max_tokens,
+                                lanes.devices[i])
 
-        launch(cur, setup)
-        mark("encode_step")
+        with span("enc.dispatch", "encode_step"):
+            launch(cur, setup)
         return cur
 
     def finish(cur: dict):
@@ -461,28 +459,25 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
         passes = 0
         while True:
             passes += 1
-            start()
-            views = lanes.gather(checked(cur, lambda: {
-                i: p.finish(mark) for i, p in cur["parts"].items()}),
-                cur["n"])
-            mark("gather_pack_meta")
-            expected, any_fix = checked(cur, lambda: ge.validate(
-                views, cur["sched"], cur["entry"], level))
-            mark("validate")
+            done = checked(cur, lambda: {
+                i: p.finish(stage_probe, cuda)
+                for i, p in cur["parts"].items()})
+            with span("enc.gather_pack_meta"):
+                views = lanes.gather(done, cur["n"])
+            with span("enc.validate"):
+                expected, any_fix = checked(cur, lambda: ge.validate(
+                    views, cur["sched"], cur["entry"], level))
             if not any_fix:
                 break
-            start()
-            launch(cur)
-            mark("encode_step")
+            launch(cur, probe=stage_probe)
         if passes > 1:
             metrics.registry.count("enc.schedule_mispredicts", passes - 1)
-        start()
-        views = lanes.gather(checked(cur, lambda: {
-            i: p.view_with_words() for i, p in cur["parts"].items()}),
-            cur["n"])
-        mark("gather_words")
-        out = checked(cur, lambda: ge.frame(views))
-        mark("frame")
+        with span("enc.gather_words"):
+            views = lanes.gather(checked(cur, lambda: {
+                i: p.view_with_words() for i, p in cur["parts"].items()}),
+                cur["n"])
+        with span("enc.frame"):
+            out = checked(cur, lambda: ge.frame(views))
         return out, expected, passes == 1
 
     def take(it):
@@ -523,9 +518,10 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
             if recovered or "snap" not in cur:
                 raise cur["exc"] from None
             metrics.registry.count("enc.group_failover")
-            out, host, expected = host_encode_group(
-                cur["data"], level, mops.state_to_bytes(cur["snap"]),
-                cur["entry"], block_size, max_tokens)
+            with metrics.stage("enc.failover"):
+                out, host, expected = host_encode_group(
+                    cur["data"], level, mops.state_to_bytes(cur["snap"]),
+                    cur["entry"], block_size, max_tokens)
             state_out, src_out, clean = mops.state_from_bytes(host), None, \
                 False
             recovered = True

@@ -1,13 +1,23 @@
-"""Named counters and timers, and a device trace around a region.
+"""Named counters, the port's stage spans, and a device trace around a
+region.
 
 Counterpart of ``libzling_tpu/utils/metrics.py``: a process-wide registry
-of named counters and timers, cheap enough to leave on (the reference's
+of named counters, cheap enough to leave on (the reference's
 compile-gated debug counters, src/libzling_debug.h:38-49).  The lanes
 count ``enc.schedule_mispredicts`` (extra validation passes of a group),
 ``enc.pipeline_redispatch`` (look-ahead groups launched again) and
 ``enc.group_failover`` (groups encoded again on the host, ``elastic``)
-under the JAX package's names.  Device profiling is ``torch.profiler``
-(``trace``).
+under the JAX package's names; the host pipeline adds ``enc.level_drops``,
+``enc.blocks``, ``enc.chunks``, ``dec.blocks`` and ``dec.chunks``.
+
+``stage`` marks one stage of the encode or decode path as a
+``torch.profiler.record_function`` range named ``zling.<name>``: on the
+profiler's timeline, beside the CUDA kernels and copies the stage queued,
+and free of any wait for the device.  The stage probe (``stage_probe`` of
+``mesh_encode`` / ``mesh_decode``) times the same stages through it.
+
+``trace`` is how an operator captures a Chrome trace of any API call, the
+port's spans and its kernels on one clock.
 """
 
 from __future__ import annotations
@@ -17,52 +27,64 @@ import threading
 import time
 from collections import defaultdict
 
+import torch
+
 
 class Metrics:
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self.counters: dict[str, int] = defaultdict(int)
-        self.timers: dict[str, float] = defaultdict(float)
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
             self.counters[name] += n
 
-    @contextlib.contextmanager
-    def timer(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            with self._lock:
-                self.timers[name] += time.perf_counter() - t0
-
     def snapshot(self) -> dict:
         with self._lock:
-            return {"counters": dict(self.counters), "timers": dict(self.timers)}
+            return {"counters": dict(self.counters)}
 
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()
-            self.timers.clear()
-
-    def report(self) -> str:
-        snap = self.snapshot()
-        lines = [f"  {k}: {v}" for k, v in sorted(snap["counters"].items())]
-        lines += [f"  {k}: {v:.4f}s" for k, v in sorted(snap["timers"].items())]
-        return "\n".join(lines) if lines else "  (empty)"
 
 
 registry = Metrics()
 
 
 @contextlib.contextmanager
+def stage(name: str, probe: dict | None = None, key: str | None = None,
+          sync=()):
+    """The stage ``name`` as the profiler range ``zling.<name>``.
+
+    Without ``probe`` nothing else happens: no wait for a device and no
+    fetch from one.  With a ``probe`` dict the stage's wall seconds are
+    added to ``probe[key]`` (``key`` None: the last dotted part of
+    ``name``), each CUDA device of ``sync`` synchronised as the stage ends:
+    a measurement mode that serialises the host and the devices."""
+    with torch.profiler.record_function("zling." + name):
+        if probe is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        yield
+        for d in sync:
+            torch.cuda.synchronize(d)
+        key = key or name.rsplit(".", 1)[-1]
+        probe[key] = probe.get(key, 0.0) + time.perf_counter() - t0
+
+
+@contextlib.contextmanager
 def trace(name: str, out_path: str | None = None):
-    """``torch.profiler`` over a region (host ops, and CUDA kernels where a
-    GPU is present), the region labelled ``name``.  Yields the profiler,
-    whose ``key_averages()`` sums time by kernel; with ``out_path`` the
-    Chrome trace is written there when the region ends."""
-    import torch
+    """``torch.profiler`` over a region (host ops and the port's spans, and
+    CUDA kernels and copies where a GPU is present), the region labelled
+    ``name``.  Yields the profiler, whose ``key_averages()`` sums time by
+    op and span; with ``out_path`` the Chrome trace is written there when
+    the region ends (``benchmark/harness/spans.py`` reads the device's
+    idle time in it by span)::
+
+        with metrics.trace("call", "trace.json"):
+            api.encode(data, 4)
+    """
     from torch.profiler import ProfilerActivity, profile, record_function
 
     acts = [ProfilerActivity.CPU]

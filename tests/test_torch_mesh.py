@@ -181,14 +181,28 @@ def test_metrics_registry_and_trace():
     m = metrics.Metrics()
     m.count("enc.pipeline_redispatch")
     m.count("enc.pipeline_redispatch", 2)
-    with m.timer("t"):
-        pass
-    snap = m.snapshot()
-    assert snap["counters"] == {"enc.pipeline_redispatch": 3}
-    assert set(snap["timers"]) == {"t"} and "redispatch: 3" in m.report()
+    assert m.snapshot() == {"counters": {"enc.pipeline_redispatch": 3}}
     m.reset()
-    assert m.snapshot() == {"counters": {}, "timers": {}}
-    assert m.report() == "  (empty)"
+    assert m.snapshot() == {"counters": {}}
+    # a span without a probe times nothing; with one it adds its seconds
+    # under its key (the last dotted part of its name by default)
+    probe: dict = {}
     with metrics.trace("lane") as prof:
-        torch.ones(8).sum()
-    assert any(e.key == "lane" for e in prof.key_averages())
+        with metrics.stage("enc.frame"):
+            torch.ones(8).sum()
+        for _ in range(2):
+            with metrics.stage("enc.validate", probe):
+                torch.ones(8).sum()
+        with metrics.stage("dec.entropy", probe, "entropy_s", sync=()):
+            pass
+    assert set(probe) == {"validate", "entropy_s"}
+    assert all(v >= 0 for v in probe.values())
+    keys = {e.key: e.count for e in prof.key_averages()}
+    assert keys["lane"] == 1 and keys["zling.enc.frame"] == 1
+    assert keys["zling.enc.validate"] == 2
+    assert keys["zling.dec.entropy"] == 1
+    # a stage that raises closes its span and adds nothing to the probe
+    with pytest.raises(ValueError):
+        with metrics.stage("enc.frame", probe, "frame"):
+            raise ValueError
+    assert "frame" not in probe
