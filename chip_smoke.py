@@ -194,6 +194,14 @@ def max_abs_err(pairs) -> int:
     return err
 
 
+def covered_share(k4stat) -> float:
+    """The share of K4's token starts whose lines its run-ahead warps had
+    read before the walker came to them (``k4stat``: per block, starts
+    and covered starts)."""
+    starts, covered = k4stat.cpu().sum(0).tolist()
+    return covered / max(starts, 1)
+
+
 def on(args, dev):
     """The tensors of an argument tuple moved to ``dev``."""
     return [a.to(dev) if torch.is_tensor(a) else a for a in args]
@@ -858,7 +866,7 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
     # e0 stream (phase 4) and to the plain version at small geometry
     got = []
     ms = cuda_ms(lambda: got.append(tkk.tokenize(bufd, *args)), 1, False)
-    units, upos, cstat, bstat = (t.cpu() for t in got[0])
+    units, upos, cstat, bstat, k4stat = (t.cpu() for t in got[0])
     assert not bstat[:, 1].any()
     cnt = cstat[:, :, 0].sum(1)
     b = int(cnt.argmax())
@@ -876,7 +884,8 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
         ms=ms, plain_ms=plain_ms, plain_block=b,
         bytes=nbytes(buf, *args, cstat, bstat) + 8 * int(cnt.sum()),
         # K4's blocks run side by side: its time is its longest block's walk
-        units=int(cnt.sum()), walker_units=int(cnt.max()))
+        units=int(cnt.sum()), walker_units=int(cnt.max()),
+        runahead_covered=covered_share(k4stat))
     # K4 alone at the e4 main path's shapes: 20 MiB, the schedule
     # group_encode launches first at e4 (level 4 in every chunk slot)
     n4 = 20 * MiB
@@ -890,7 +899,8 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
     assert not got[0][3][:, 1].any()
     rows["tokenize"]["e4"] = dict(
         ms=ms, units=int(got[0][2][:, :, 0].sum()),
-        walker_units=int(got[0][2][:, :, 0].sum(1).max()), bytes=n4)
+        walker_units=int(got[0][2][:, :, 0].sum(1).max()), bytes=n4,
+        runahead_covered=covered_share(got[0][4]))
 
     rargs = (units, offs, cnt, mops.initial_state("cpu"),
              mops.mtf_next("cpu"))

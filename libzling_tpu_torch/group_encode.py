@@ -109,7 +109,8 @@ class Part:
     def tokenize(self, rows: np.ndarray) -> None:
         """Launch K4 under the per-chunk level rows [blocks, max_chunks]."""
         with metrics.stage("enc.tokenize"):
-            self.units, _upos, self.cstat, self.bstat = tkk.tokenize(
+            (self.units, _upos, self.cstat, self.bstat,
+             self.k4stat) = tkk.tokenize(
                 self.buf, self.block_off, self.block_len, self.block_off,
                 tkk.level_params(rows, self.device), self.max_tokens,
                 self.n_units)
@@ -136,7 +137,10 @@ class Part:
         ``gather_freqs`` (the statistics and histograms, fetched; within
         it ``enc.wait``, the host waiting for K4 and K5),
         ``length_tables``, ``pack_step`` (codes and packing) and
-        ``gather_pack_meta`` (the bit counts and word offsets, fetched)."""
+        ``gather_pack_meta`` (the bit counts and word offsets, fetched).
+        Adds K4's token starts and those its run-ahead warps had read
+        first to the counters ``enc.k4_starts`` and
+        ``enc.k4_runahead_covered`` (the kernel's launches only)."""
         if self._view is not None:
             return self._view
         dev = self.device
@@ -150,6 +154,11 @@ class Part:
             with metrics.stage("enc.wait"):
                 cstat, bstat = self.cstat.cpu().numpy(), \
                     self.bstat.cpu().numpy()
+                if self.k4stat is not None:
+                    starts, covered = self.k4stat.cpu().sum(0).tolist()
+                    metrics.registry.count("enc.k4_starts", starts)
+                    metrics.registry.count("enc.k4_runahead_covered",
+                                           covered)
             if bstat[:, 1].any():
                 raise RuntimeError("tokenize: a block did not fit max_chunks")
             nchunks = bstat[:, 0].astype(np.int64)

@@ -81,7 +81,7 @@ def k4_args(data: bytes, schedule, device) -> tuple:
 def units(out) -> int:
     """The units K4 emitted, from its chunk stats; raises if the block was
     not fully tokenized."""
-    _units, _upos, chunk_stat, block_stat = out
+    _units, _upos, chunk_stat, block_stat, _ = out
     if int(block_stat[0, 1]):
         raise RuntimeError("K4 did not tokenize the whole block")
     return int(chunk_stat[0, :, 0].sum())

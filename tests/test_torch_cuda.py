@@ -68,11 +68,12 @@ def _tokenize_args(data: bytes, level: int):
                  GEOM["max_tokens"], len(data))
 
 
-@pytest.mark.parametrize("level", [0, 4, 6])
+@pytest.mark.parametrize("level", range(7))
 def test_tokenize_and_relabel_kernels_equal_plain(cuda, level):
     buf, args = _tokenize_args(_data(), level)
     want = ttk.tokenize_plain(buf, *args)
     got = ttk.tokenize(buf.to(cuda), *args)
+    assert len(got) == len(want) + 1   # and the run-ahead counts
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     state = tmtf.initial_state("cpu")
@@ -258,16 +259,64 @@ def test_design_cases_equal_plain(cuda, name):
         assert zt.decode(stream, device=cuda) == data
 
 
-def test_tokenize_mixed_schedule_equal_plain(cuda):
-    # the warp walker with the level (and so the lazy lanes' work) changing
-    # between chunks of a block
-    for name in ("one-byte run", "e6 repetitive text"):
-        data, levels, geom = smoke.design_cases()[name]
-        buf, args = smoke.tokenize_args(data, levels[-1], geom, mixed=True)
+def _runahead_cases() -> dict:
+    """Inputs aimed at K4's run-ahead warps: name -> (bytes, levels,
+    geometry).  Seeded random bytes (shallow chains, rare check-byte hits),
+    blocks shorter than the run-ahead window (300 bytes: token starts at
+    positions 2-24 alone; the last, 200 bytes, none), and blocks whose
+    match limit falls inside a 32-position group, and so inside the window
+    at the block's end (1,000 bytes: limit 725)."""
+    rng = np.random.default_rng(17)
+    return {
+        "seeded random bytes": (
+            rng.integers(0, 256, 6000, dtype=np.uint8).tobytes(), (0, 4, 6),
+            GEOM),
+        "blocks shorter than the window": (
+            _data(3)[:2000], (0, 4, 6), dict(block_size=300, max_tokens=500)),
+        "match limit inside the window": (
+            _data(5), (0, 4, 6), dict(block_size=1000, max_tokens=500)),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "one-byte run", "e6 repetitive text", "seeded random bytes",
+    "blocks shorter than the window", "match limit inside the window"])
+def test_tokenize_mixed_schedule_equal_plain(cuda, name):
+    # the warp walker with the level (and so the lazy lanes' work and the
+    # run-ahead's window and depth) changing between chunks of a block
+    data, levels, geom = {**smoke.design_cases(), **_runahead_cases()}[name]
+    for level in levels:
+        buf, args = smoke.tokenize_args(data, level, geom, mixed=True)
         want = ttk.tokenize_plain(buf, *args)
         got = ttk.tokenize(buf.to(cuda), *args)
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
+
+
+def test_tokenize_runahead_counters(cuda):
+    # the counters K4's launches feed through Part.finish, after an encode
+    # of the corpus slice at e0: a token start is a unit at a position in
+    # [2, the block's match limit), where the walker searches its bucket
+    from libzling_tpu_torch.probes import sweep_tokenize as sw
+    from libzling_tpu_torch.tables import LEVEL_PARAMS, MATCH_MAX_LEN
+    from libzling_tpu_torch.utils import metrics
+
+    data = sw.corpus_slice(256 << 10)
+    keys = ("enc.k4_starts", "enc.k4_runahead_covered")
+    before = metrics.registry.snapshot()["counters"]
+    launches = ttk.tokenize.launches
+    stream = zt.encode(data, 0, device=cuda)
+    after = metrics.registry.snapshot()["counters"]
+    starts, covered = (after.get(k, 0) - before.get(k, 0) for k in keys)
+    n = ttk.tokenize.launches - launches
+    _, upos, cstat, _ = ttk.tokenize_plain(
+        *sw.k4_args(data, LEVEL_PARAMS[0], "cpu"))
+    upos = upos[:int(cstat[0, :, 0].sum())]
+    calls = int(((upos >= 2) & (upos < len(data) - MATCH_MAX_LEN - 16)).sum())
+    assert n >= 1 and calls > 0
+    assert starts == n * calls
+    assert 0 <= covered <= starts
+    assert zt.decode(stream, device=cuda) == data
 
 
 def test_tokenize_lazy_depth_above_max(cuda):
@@ -279,7 +328,7 @@ def test_tokenize_lazy_depth_above_max(cuda):
     bad = (*args[:3], deep, *args[4:])
     with pytest.raises(ValueError):
         ttk.tokenize(buf.to(cuda), *bad)
-    _, _, _, bstat = ttk.tokenize(buf.to(cuda), *_on(bad, cuda))
+    _, _, _, bstat, _ = ttk.tokenize(buf.to(cuda), *_on(bad, cuda))
     assert bstat.tolist() == [[0, 1]] * len(bstat)
 
 

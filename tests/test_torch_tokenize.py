@@ -13,7 +13,9 @@ import torch
 from libzling_tpu import spec
 from libzling_tpu.ops import tokenize_kernel as jtk
 from libzling_tpu.tables import SENTINEL_LEN
+import libzling_tpu_torch as zt
 from libzling_tpu_torch.ops import tokenize_kernel as ttk
+from libzling_tpu_torch.utils import metrics
 
 
 def _mixed(seed: int, size: int) -> bytes:
@@ -108,7 +110,7 @@ def test_tokenize_flat_blocks_match_spec():
     offs = np.cumsum([0] + [len(b) for b in blocks])[:-1]
     buf = torch.zeros(len(data) + SENTINEL_LEN, dtype=torch.uint8)
     buf[:len(data)] = torch.as_tensor(np.frombuffer(data, np.uint8).copy())
-    units, upos, cstat, bstat = ttk.tokenize(
+    units, upos, cstat, bstat, _ = ttk.tokenize(
         buf, torch.as_tensor(offs), torch.tensor([len(b) for b in blocks]),
         torch.as_tensor(offs), ttk.level_params(scheds, "cpu"), max_tokens,
         len(data))
@@ -126,3 +128,22 @@ def test_tokenize_flat_blocks_match_spec():
                                    mtf)
             assert got == tokens, (b, c)
             u += nu
+
+
+def test_plain_tokenize_leaves_the_runahead_counters_alone():
+    # the plain K4 has no run-ahead warps: it returns no counts, and an
+    # encode on the CPU adds nothing to the counters the kernel's feed
+    data = _mixed(5, 6000)
+    buf = torch.zeros(len(data) + SENTINEL_LEN, dtype=torch.uint8)
+    buf[:len(data)] = torch.as_tensor(np.frombuffer(data, np.uint8).copy())
+    zero = torch.zeros(1, dtype=torch.int64)
+    out = ttk.tokenize(buf, zero, torch.tensor([len(data)]), zero,
+                       ttk.level_params([[4] * 12], "cpu"), 700, len(data))
+    assert len(out) == 5 and out[4] is None
+    keys = ("enc.k4_starts", "enc.k4_runahead_covered")
+    before = metrics.registry.snapshot()["counters"]
+    stream = zt.encode(data, 4, device="cpu", block_size=2048,
+                       max_tokens=500)
+    assert stream == spec.encode(data, 4, block_size=2048, max_tokens=500)
+    after = metrics.registry.snapshot()["counters"]
+    assert [after.get(k) for k in keys] == [before.get(k) for k in keys]
