@@ -2,13 +2,19 @@
 per-layer metrics read.
 
 The window is the benchmark's own span ``benchmark.window`` (each call in
-it a ``benchmark.call``).  Device time is the union of the intervals of
-the device's operations (kernels, copies, sets) inside the window; a
-kernel belongs to the stage whose ``stages/<stage>/*.txt`` lists its name
+it a ``benchmark.call``).  Each device operation (kernel, copy, set)
+keeps its card: the ``args.device`` the profiler writes on it, else its
+``pid``, else card 0.  A card's busy time is the union of the intervals
+of its operations inside the window.  Every figure of device time (the
+busy and idle time, the idle gaps, the device time by operation) is taken
+card by card and averaged over the cards that the trace shows working in
+the window (``Reading.cards``); on one card it is that card's.  A kernel
+belongs to the stage whose ``stages/<stage>/*.txt`` lists its name
 (``kernel_name``), else to ``other``.  A stage's roofline share is the
 least time its work (``layout.Stage.bytes_moved``, in the format's own
-quantities) takes at the card's memory bandwidth (``benchmark/peaks.json``)
-over the device time of its kernels.
+quantities) takes at one card's memory bandwidth (``benchmark/peaks.json``)
+over the device time of its kernels, summed over the cards: the same
+work, whatever number of cards does it.
 """
 
 from __future__ import annotations
@@ -35,6 +41,16 @@ class Event(NamedTuple):
     cat: str
     start: float       # seconds
     end: float
+    card: int = 0      # a device operation's card (``card_of``)
+
+
+def card_of(e: dict) -> int:
+    """The card a device event of the Chrome trace ran on: Kineto's
+    ``args.device``, else the event's ``pid``, else 0."""
+    for v in ((e.get("args") or {}).get("device"), e.get("pid")):
+        if isinstance(v, int):
+            return v
+    return 0
 
 
 def kernel_name(raw: str) -> str:
@@ -72,7 +88,7 @@ class Trace:
             ev = Event(e.get("name", ""), e.get("cat", ""), e["ts"] * 1e-6,
                        (e["ts"] + e["dur"]) * 1e-6)
             if ev.cat in DEVICE_CATS:
-                self.device.append(ev)
+                self.device.append(ev._replace(card=card_of(e)))
             elif ev.cat in HOST_CATS:
                 self.host.append(ev)
 
@@ -114,7 +130,10 @@ class Reading:
 
     ``quantities``: the format's own quantities of one call (a mapping
     that may compute a costly one when first read); ``calls``: the calls
-    the window completed; ``hbm_bytes_per_s``: the card's peak, or None.
+    the window completed; ``hbm_bytes_per_s``: one card's peak, or None.
+    ``cards``: the cards with a device operation in the window (card 0
+    where none has one); ``card_busy_s``: each one's busy seconds;
+    ``busy_s``: their mean.
     """
 
     def __init__(self, trace: Trace, stages: dict, op: str, quantities,
@@ -125,11 +144,16 @@ class Reading:
         self.trace, self.stages, self.op = trace, stages, op
         self.quantities, self.calls = quantities, calls
         self.hbm_bytes_per_s = hbm_bytes_per_s
-        self.device = [Event(e.name, e.cat, max(e.start, self.lo),
-                             min(e.end, self.hi)) for e in trace.device
+        self.device = [e._replace(start=max(e.start, self.lo),
+                                  end=min(e.end, self.hi))
+                       for e in trace.device
                        if e.end > self.lo and e.start < self.hi]
-        self.busy = union((e.start, e.end) for e in self.device)
-        self.busy_s = sum(b - a for a, b in self.busy)
+        self.cards = tuple(sorted({e.card for e in self.device})) or (0,)
+        self.busy = {c: union((e.start, e.end) for e in self.device
+                              if e.card == c) for c in self.cards}
+        self.card_busy_s = {c: sum(b - a for a, b in busy)
+                            for c, busy in self.busy.items()}
+        self.busy_s = sum(self.card_busy_s.values()) / len(self.cards)
         self._of = {}
         host = [e for e in trace.host if e.name != WINDOW]
         self._host = (host, np.array([e.start for e in host]),
@@ -143,7 +167,8 @@ class Reading:
         return self._of[raw]
 
     def idle_pct(self) -> float:
-        """100 x the share of the window in which no device operation ran."""
+        """100 x the share of the window in which no device operation ran
+        on a card, averaged over the cards."""
         return 100.0 * (1.0 - self.busy_s / self.window_s)
 
     def stage_seconds(self, stage: str) -> float:
@@ -159,10 +184,10 @@ class Reading:
         return st.bytes_moved(self.quantities) * self.calls
 
     def roofline_pct(self, stage: str) -> float | None:
-        """100 x the least time of the stage's work at the card's memory
-        bandwidth over its kernels' device time.  None where the cell does
-        none of its work or the card is not in ``peaks.json``; a stage that
-        did work but shows no kernel raises."""
+        """100 x the least time of the stage's work at one card's memory
+        bandwidth over its kernels' device time on every card.  None where
+        the cell does none of its work or the card is not in
+        ``peaks.json``; a stage that did work but shows no kernel raises."""
         nbytes = self.stage_bytes(stage)
         if nbytes is None or self.calls == 0:
             return None
@@ -176,10 +201,13 @@ class Reading:
             return None
         return 100.0 * (nbytes / self.hbm_bytes_per_s) / t
 
-    def gaps(self) -> list[tuple[float, float]]:
-        """The window's idle intervals on the device."""
+    def gaps(self, card: int | None = None) -> list[tuple[float, float]]:
+        """The window's idle intervals on ``card``; without one, those of
+        every card of ``cards``, card after card."""
+        if card is None:
+            return [g for c in self.cards for g in self.gaps(c)]
         out, t = [], self.lo
-        for a, b in self.busy:
+        for a, b in self.busy.get(card, ()):
             if a > t:
                 out.append((t, a))
             t = max(t, b)
@@ -199,19 +227,22 @@ class Reading:
 
     def breakdown(self, top: int = 10, named_gaps: int = 200) -> dict:
         """``device_ops``: device seconds by ``<stage>/<kernel>`` (copies
-        and sets by their own names); ``idle_gaps``: seconds of the
+        and sets by their own names); ``idle_gaps``: seconds of each card's
         ``named_gaps`` longest idle gaps, summed by what the host was doing
-        in each; both the ``top`` largest."""
+        in each; both a card's mean over ``cards``, the ``top`` largest."""
         ops: dict[str, float] = defaultdict(float)
         for e in self.device:
             key = (f"{self.stage_of(e.name)}/{kernel_name(e.name)}"
                    if e.cat == "kernel" else e.name)
             ops[key] += e.end - e.start
         idle: dict[str, float] = defaultdict(float)
-        for a, b in sorted(self.gaps(), key=lambda g: g[0] - g[1])[:named_gaps]:
-            idle[self.host_activity((a + b) / 2)] += b - a
+        for c in self.cards:
+            for a, b in sorted(self.gaps(c),
+                               key=lambda g: g[0] - g[1])[:named_gaps]:
+                idle[self.host_activity((a + b) / 2)] += b - a
 
         def best(d):
-            return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])
-                    [:top]]
+            n = len(self.cards)
+            return [[k, v / n] for k, v in
+                    sorted(d.items(), key=lambda kv: -kv[1])[:top]]
         return {"device_ops": best(ops), "idle_gaps": best(idle)}

@@ -6,10 +6,13 @@ reference's, made on the same thread); warm up on one whole call of the
 cell's own operation on the cell's own input, so every shape and buffer
 the window uses is built; then the window, a closed loop of one caller:
 whole calls back to back until ``seconds`` have passed, every output
-kept.  Once the window has closed, the device's peak read and the
+kept.  Once the window has closed, the cards' peaks read and the
 program's state freed, the reference works out an encode cell's canonical
 stream, and every output is compared, byte for byte, with the reference
-(encode: its canonical stream; decode: the input).
+(encode: its canonical stream; decode: the input).  ``correct`` also
+needs every card the cell gives (its ``chips``) used in the window
+(``devices_unused``, limit 0): a card counts as used when the program's
+allocator held memory on it during the window (``Port.device_info``).
 
 ``setup_s`` runs from the process's start to the window, less the time
 the set-up waited for the reference's stream (decode cells), which is
@@ -49,9 +52,14 @@ class NoDevice(RuntimeError):
 
 
 class Port:
-    """The program under test: ``libzling_tpu_torch.api`` on ``device``
-    (``chips`` CUDA devices must be present).  The entry is looked up at
-    every call, so a test may replace it."""
+    """The program under test: ``libzling_tpu_torch.api`` on ``device``.
+    On CUDA the cell's ``chips`` devices must be visible.  Every visible
+    card is watched: ``reset_peak`` (before the window) synchronises each
+    and resets its peak, and ``device_info`` (after it) counts the cards
+    on which the program's allocator held memory during the window, so a
+    buffer kept from the set-up counts and a card touched only in the
+    warm-up does not.  The entry is looked up at every call, so a test may
+    replace it."""
 
     def __init__(self, device: str = "cuda", chips: int = 1):
         t = time.perf_counter()
@@ -83,16 +91,29 @@ class Port:
 
     def reset_peak(self) -> None:
         if self.cuda:
-            self.torch.cuda.synchronize()
-            self.torch.cuda.reset_peak_memory_stats()
+            t = self.torch.cuda
+            for i in range(t.device_count()):
+                t.synchronize(i)
+                t.reset_peak_memory_stats(i)
 
     def device_info(self) -> dict:
+        """``count``: the cards used in the window; ``kind``: their name
+        (one name, or this raises); ``memory_peak_bytes``: the fullest
+        card's peak; ``devices``: each used card's index and peak."""
         if not self.cuda:
             return {"platform": "cpu", "kind": "cpu", "count": 1,
                     "memory_peak_bytes": 0}
         t = self.torch.cuda
-        return {"platform": "gpu", "kind": t.get_device_name(0), "count": 1,
-                "memory_peak_bytes": int(t.max_memory_allocated(0))}
+        peaks = [int(t.max_memory_allocated(i))
+                 for i in range(t.device_count())]
+        used = [i for i, p in enumerate(peaks) if p > 0]
+        kinds = {t.get_device_name(i) for i in used or [0]}
+        if len(kinds) != 1:
+            raise RuntimeError(f"the cards used differ: {sorted(kinds)}")
+        return {"platform": "gpu", "kind": kinds.pop(), "count": len(used),
+                "memory_peak_bytes": max(peaks, default=0),
+                "devices": [{"index": i, "memory_peak_bytes": peaks[i]}
+                            for i in used]}
 
     def release(self) -> None:
         if self.cuda:
@@ -308,8 +329,10 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     info.update(stream_bytes=len(stream),
                 ratio_pct=100.0 * len(stream) / max(1, len(data)))
     diff = sum(differing(o, want) for o in outputs)
+    unused = max(0, int(cell.get("chips", 1)) - device["count"])
     checks = {"bytes_differing": {"value": diff, "limit": 0},
-              "calls_failed": {"value": failed, "limit": 0}}
+              "calls_failed": {"value": failed, "limit": 0},
+              "devices_unused": {"value": unused, "limit": 0}}
     correct = all(c["value"] <= c["limit"] for c in checks.values())
     done = len(outputs) - failed
     info.update(calls=len(outputs), call_s=call_s, card=card()
@@ -337,6 +360,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}
         device.update(busy_s=rd.busy_s, window_s=rd.window_s)
+        for d in device.get("devices", []):
+            d["busy_s"] = rd.card_busy_s.get(d["index"], 0.0)
         info["quantities"] = dict(q)
         info["traced_MBps"] = len(data) * done / 1e6 / window_s
         breakdown = rd.breakdown()

@@ -7,9 +7,10 @@ API call a top span (``zling.encode``, ``zling.decode``), its stages
 nested in it on the one calling thread.  They land in the Chrome trace as
 host events on the same timeline as the device's operations.  This module
 reads them from a ``reading.Reading`` through its public fields alone
-(``trace.host``, ``lo`` / ``hi``, ``gaps()``, ``calls``), so a trace with
-no port span (a program from before them) reads as nothing, never as an
-error.
+(``trace.host``, ``lo`` / ``hi``, ``cards``, ``gaps()``, ``calls``), so a
+trace with no port span (a program from before them) reads as nothing,
+never as an error.  Idle time is each card's, averaged over ``cards``:
+the host's spans are one timeline that every card's gaps are cut by.
 """
 
 from __future__ import annotations
@@ -38,8 +39,9 @@ def idle_under(reading, top: str) -> dict[str, float]:
     """Seconds of device idle time inside ``top`` spans, by the innermost
     span covering each instant: the ``zling.*`` span (or ``top`` span) that
     started latest, of two that started together the one that ends first.
-    An idle interval of ``reading.gaps()`` is cut exactly at every span
-    edge; idle time outside every ``top`` span is left out."""
+    An idle interval of ``reading.gaps(card)`` is cut exactly at every span
+    edge; idle time outside every ``top`` span is left out; a card's mean
+    over ``reading.cards``."""
     spans = [e for e in port_spans(reading) if e.name != top]
     spans += [e._replace(start=max(e.start, reading.lo),
                          end=min(e.end, reading.hi))
@@ -64,20 +66,22 @@ def idle_under(reading, top: str) -> dict[str, float]:
     inner = np.where(cover, order[None, :], -1).argmax(axis=1)
 
     out: dict[str, float] = defaultdict(float)
-    for a, b in reading.gaps():
-        i = max(int(np.searchsorted(edges, a, side="right")) - 1, 0)
-        while i < len(mids) and edges[i] < b:
-            lo, hi = max(a, edges[i]), min(b, edges[i + 1])
-            if hi > lo and under_top[i]:
-                out[spans[inner[i]].name] += hi - lo
-            i += 1
+    n = len(reading.cards)
+    for card in reading.cards:
+        for a, b in reading.gaps(card):
+            i = max(int(np.searchsorted(edges, a, side="right")) - 1, 0)
+            while i < len(mids) and edges[i] < b:
+                lo, hi = max(a, edges[i]), min(b, edges[i + 1])
+                if hi > lo and under_top[i]:
+                    out[spans[inner[i]].name] += (hi - lo) / n
+                i += 1
     return dict(out)
 
 
 def host_idle_ms(reading, top: str) -> float | None:
-    """1000 x the device's idle seconds inside ``top`` spans over the
-    calls the window completed; None where the window holds no port span
-    or completed no call."""
+    """1000 x the device's idle seconds inside ``top`` spans (a card's
+    mean) over the calls the window completed; None where the window holds
+    no port span or completed no call."""
     if not port_spans(reading) or reading.calls == 0:
         return None
     return float(1000.0 * sum(idle_under(reading, top).values())

@@ -1,5 +1,6 @@
 """The device's idle time a call under the port's decode spans: 1000 x the
-seconds in which no device operation ran inside ``zling.decode`` spans
+seconds in which no device operation ran on a card (a card's mean over
+the cards that worked) inside ``zling.decode`` spans
 (parse, staging, the status check and the copy back on the host,
 ``harness/spans.py``), over the calls the window completed.  None on a
 trace without the port's spans.  Moves ``decode_MBps``."""

@@ -1,6 +1,8 @@
 """The device's idle share over encode calls: 100 x the share of the traced window in which no device
-operation (kernel, copy, set) ran, from the profiler's CUDA intervals
-(their union) over the window's wall time.  Moves ``encode_MBps``."""
+operation (kernel, copy, set) ran on a card, from the profiler's CUDA
+intervals (their union, card by card) over the window's wall time,
+averaged over the cards that worked in the window.  Moves
+``encode_MBps``."""
 
 
 def read(reading):

@@ -5,13 +5,17 @@
     python3 benchmark/run.py --list
 
 Runs from the root of a checkout.  Without a CUDA device (or with fewer
-than the cell asks for) it exits 2 and prints no result.  With
-``--trace 0`` the result carries the cell's end-to-end metrics, with
+than the cell asks for) it exits 2 and prints no result.  Every visible
+card is watched: the result's ``device.count`` is the cards on which the
+program held memory during the window, and a run that leaves one of the
+cell's ``chips`` cards unused is not ``correct`` (``devices_unused``).
+With ``--trace 0`` the result carries the cell's end-to-end metrics, with
 ``--trace 1`` its per-layer metrics, read from a profiler trace of the
-same window.  The last line of stdout is the result; the last lines of
-stderr are the numbers the check compared, each beside its limit.  Once
-the window has closed, a process that holds ``jax``, ``jaxlib``, ``flax``
-or ``libzling_tpu`` (whole top-level names) exits 3 and prints no result.
+same window card by card and averaged over the cards that worked.  The
+last line of stdout is the result; the last lines of stderr are the
+numbers the check compared, each beside its limit.  Once the window has
+closed, a process that holds ``jax``, ``jaxlib``, ``flax`` or
+``libzling_tpu`` (whole top-level names) exits 3 and prints no result.
 """
 
 import time

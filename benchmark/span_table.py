@@ -12,9 +12,10 @@ Prints a JSON line a run: the result line's per-layer metrics and
 children's included); the device's idle ms a call by the innermost port span
 under the call's top span (``harness/spans.py``); the share of the idle
 time inside ``benchmark.call`` spans that lies under a port span below
-the top one; and the 200 longest idle gaps summed by what the host was
-doing (``Reading.host_activity``) and the innermost port span around it,
-which names the stage that sat in a ``cudaMalloc``.
+the top one; and each card's 200 longest idle gaps summed by what the
+host was doing (``Reading.host_activity``) and the innermost port span
+around it, which names the stage that sat in a ``cudaMalloc``.  Idle time
+is a card's mean over the cards that worked in the window.
 """
 
 import argparse
@@ -55,9 +56,11 @@ def table(rd, op: str, calls: int) -> dict:
     below = sum(v for k, v in in_calls.items() if k not in (reading.CALL, top))
     port = spans.port_spans(rd)
     gaps: dict = defaultdict(float)
-    for a, b in sorted(rd.gaps(), key=lambda g: g[0] - g[1])[:200]:
-        t = (a + b) / 2
-        gaps[f"{rd.host_activity(t)} @ {innermost(port, t)}"] += b - a
+    for card in rd.cards:
+        for a, b in sorted(rd.gaps(card), key=lambda g: g[0] - g[1])[:200]:
+            t = (a + b) / 2
+            gaps[f"{rd.host_activity(t)} @ {innermost(port, t)}"] += (
+                (b - a) / len(rd.cards))
     held: dict = defaultdict(float)
     for e in port:
         held[e.name] += e.end - e.start

@@ -41,7 +41,8 @@ def test_sound_program_is_correct(cell):
     assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
     assert list(res)[-1] == "checks"
     assert r["check_lines"] == ["check bytes_differing 0 limit 0",
-                                "check calls_failed 0 limit 0"]
+                                "check calls_failed 0 limit 0",
+                                "check devices_unused 0 limit 0"]
     (rate,) = [k for k in res["metrics"] if k.endswith("_MBps")]
     assert res["metrics"][rate]["value"] > 0
     assert res["metrics"]["setup_s"]["value"] > 0

@@ -21,20 +21,25 @@ TORCH = ("void at::native::vectorized_elementwise_kernel<4, "
          "at::native::FillFunctor<int>, std::array<char*, 1ul>)")
 
 
-def ev(name, cat, ts, dur):
-    return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
-            "pid": 0, "tid": 0}
+def ev(name, cat, ts, dur, card=None):
+    """An event; ``card`` given, in ``args.device`` as the profiler writes
+    it on a device operation."""
+    e = {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
+         "pid": 0, "tid": 0}
+    if card is not None:
+        e["args"] = {"device": card, "stream": 7}
+    return e
 
 
-def chrome(device, host=(), window=(0.0, 1_000_000.0), calls=1):
-    """A trace: ``device`` (name, cat, start us, dur us), the window span
-    and its calls, and ``host`` events."""
+def chrome(device, host=(), window=(0.0, 1_000_000.0), calls=1, card=None):
+    """A trace: ``device`` (name, cat, start us, dur us[, card]; the card
+    else ``card``), the window span and its calls, and ``host`` events."""
     lo, hi = window
     evs = [ev(reading.WINDOW, "user_annotation", lo, hi - lo)]
     step = (hi - lo) / calls
     evs += [ev(reading.CALL, "user_annotation", lo + k * step, step)
             for k in range(calls)]
-    evs += [ev(n, c, s, d) for n, c, s, d in device]
+    evs += [ev(*d[:4], card=d[4] if len(d) > 4 else card) for d in device]
     evs += [ev(n, "cpu_op", s, d) for n, s, d in host]
     # events the reader ignores: a flow event, a device-side annotation
     evs += [{"ph": "f", "name": "ac2g", "cat": "ac2g", "ts": 5},
@@ -62,7 +67,7 @@ def test_kernel_names():
         "Memcpy DtoH")
 
 
-def test_encode_window(stages):
+def encode_window(stages, card=None):
     # two calls of 500 ms: K4 400 ms, K5 20 ms, a torch op 10 ms, a copy
     # 5 ms each; the copy overlaps the torch op by 5 ms
     device = []
@@ -73,8 +78,31 @@ def test_encode_window(stages):
                    ("Memcpy DtoH (Device -> Pinned)", "gpu_memcpy",
                     base + 445_000, 10_000)]
     host = [("aten::copy_", 455_000, 40_000)]
-    r = reading.Reading(reading.Trace(chrome(device, host, calls=2)), stages,
-                        "encode", Q, 2, BW)
+    return reading.Reading(reading.Trace(chrome(device, host, calls=2,
+                                                card=card)),
+                           stages, "encode", Q, 2, BW)
+
+
+def test_encode_window(stages):
+    r = encode_window(stages)
+    assert r.cards == (0,)
+    check_encode_window(r)
+
+
+@pytest.mark.parametrize("card", [0, 3])
+def test_a_card_named_in_the_trace_reads_as_before(stages, card):
+    """The same one-card trace with ``args.device`` on its device events
+    reads to the same numbers, whichever card it names."""
+    r = encode_window(stages, card)
+    assert r.cards == (card,)
+    check_encode_window(r)
+    plain = encode_window(stages)
+    assert (r.busy_s, r.idle_pct(), r.breakdown()) == (
+        plain.busy_s, plain.idle_pct(), plain.breakdown())
+    assert r.gaps() == r.gaps(card) == plain.gaps(0)
+
+
+def check_encode_window(r):
     assert r.window_s == pytest.approx(1.0)
     assert r.busy_s == pytest.approx(2 * 0.435)
     assert r.idle_pct() == pytest.approx(13.0)
@@ -137,18 +165,42 @@ def test_events_outside_the_window_are_clipped(stages):
     assert r.stage_seconds("decode") == pytest.approx(0.5)
 
 
+# the readers of the port's spans (``harness/spans.py``): a number on a
+# trace that holds the spans, None on one without them
+SPAN_READERS = {"encode.host_idle_ms", "decode.host_idle_ms",
+                "encode.k4_passes"}
+
+
 def test_each_metric_reader_reads_its_cells(stages):
     """Every per-layer metric of the manifest has a reader that gives a
-    number on a canned trace of each cell it lists."""
+    number on a canned trace of each cell it lists, a share in (0, 100];
+    on the same trace without the port's spans a span reader gives None
+    and every other reader the same number."""
     bench = layout.Benchmark()
     dev = {"encode": [(K4, "kernel", 0, 400_000), (K5, "kernel", 400_000,
                                                    20_000)],
            "decode": [(K3, "kernel", 0, 900_000)]}
+    # one call's spans (name, start us, dur us), as the port opens them;
+    # the device idles from 420 ms (encode) or 900 ms (decode) to 990 ms
+    port = {"encode": [("zling.encode", 0, 990_000),
+                       ("zling.enc.launch", 1_000, 1_000),
+                       ("zling.enc.frame", 500_000, 100_000)],
+            "decode": [("zling.decode", 0, 990_000),
+                       ("zling.dec.fetch", 900_000, 50_000)]}
     for m in bench.manifest["per_layer"]:
         for cell in m["workloads"]:
             op = bench.traffic(bench.cell(cell)["traffic"])["op"]
-            r = reading.Reading(reading.Trace(chrome(dev[op])), stages, op,
-                                Q, 1, BW)
-            v = bench.reader(m["name"])(r)
-            assert v is not None and 0 < v <= 100, (m["name"], cell, v)
+            c = chrome(dev[op])
+            bare = reading.Reading(reading.Trace(c), stages, op, Q, 1, BW)
+            c["traceEvents"] += [ev(n, "user_annotation", s, d)
+                                 for n, s, d in port[op]]
+            r = reading.Reading(reading.Trace(c), stages, op, Q, 1, BW)
+            v, v_bare = (bench.reader(m["name"])(x) for x in (r, bare))
+            assert v is not None and v > 0, (m["name"], cell, v)
+            if m["unit"] == "%":
+                assert v <= 100, (m["name"], cell, v)
+            if m["name"] in SPAN_READERS:
+                assert v_bare is None, (m["name"], cell, v_bare)
+            else:
+                assert v_bare == v, (m["name"], cell, v_bare, v)
     json.dumps(bench.listing())
