@@ -11,8 +11,8 @@ canonical host codec the card's streams are checked against.
 
 Public API:
 
-    encode(data, level=0, device="cuda") -> bytes
-    decode(data, device="cuda", fused=True) -> bytes
+    encode(data, level=0, device="cuda") -> bytes     # every visible GPU
+    decode(data, device="cuda", fused=True) -> bytes  # the current GPU
     decode_groups(data, device="cuda", group_blocks=1) -> bytes
     encode_file(src, dst, level=0), decode_file(src, dst)   # streaming
     stream_encode(src, dst, level=0, devices=None, hooks=None)

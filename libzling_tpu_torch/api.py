@@ -5,6 +5,11 @@ two-function surface of the reference (src/libzling.h:44-45) plus file
 helpers that stream (``utils/io.py``).  ``device`` defaults to ``"cuda"``
 and raises when no GPU is present; tests pass ``device="cpu"`` to run
 every kernel's plain version.
+
+``encode(data, level, device="cuda")`` runs the lanes on every visible
+card (``device.encode_devices``; ``"cuda:N"`` names one card);
+``decode`` runs on one card, K3 being one serial walk a stream; the file
+helpers run on the one ``device`` they are given.
 """
 
 from __future__ import annotations

@@ -1,18 +1,22 @@
-"""The port's main path: encode and decode on one device.
+"""The port's main path: encode over every visible card, decode on one.
 
 Counterpart of ``libzling_tpu/device.py`` (``encode``, ``decode``).
 
-  encode: ``parallel/mesh.py::mesh_encode`` over this one device, up to
-      ``GROUP_BLOCKS`` blocks a group (``group_encode.Part``'s stages: K4
+  encode: ``parallel/mesh.py::mesh_encode`` over the lane's cards
+      (``encode_devices``: every visible card for ``"cuda"``, the one card
+      named by ``"cuda:N"``, the host for ``"cpu"``), ``GROUP_BLOCKS``
+      blocks a card and group (``group_encode.Part``'s stages: K4
       tokenize, K5 relabel, torch Huffman stages, host length tables and
-      framing) -- at the canonical 16 MiB / 262,144-token geometry by
-      default;
-  decode: host parse (``container.parse``, ``unpack_length_tables``), then
-      either the fused kernel K3 (the default), which writes every block's
+      framing), the MTF state handed card to card -- at the canonical 16
+      MiB / 262,144-token geometry by default;
+  decode: on one card (``"cuda"`` is the current one): host parse
+      (``container.parse``, ``unpack_length_tables``), then either the
+      fused kernel K3 (the default), which writes every block's
       bytes at its offset in one u8 tensor, or (``fused=False``) the split
       pair: K1 decodes every chunk to tokens, one CTA per chunk, and K2
       resolves them (``group_decode.py`` with one group); the per-chunk
-      statuses turn into ``ValueError`` on a corrupt stream.
+      statuses turn into ``ValueError`` on a corrupt stream.  K3 is one
+      serial walk a stream, so decode does not spread over cards.
 
 Each call is the span ``zling.encode`` or ``zling.decode``
 (``utils/metrics.stage``), its stages' spans nested in it.
@@ -26,7 +30,7 @@ from .tables import BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ
 from . import group_decode
 from .group_encode import GROUP_BLOCKS
 from .ops import decode_fused as fk
-from .parallel.mesh import mesh_encode
+from .parallel.mesh import make_mesh, mesh_encode
 from .utils import metrics
 
 
@@ -40,13 +44,24 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def encode_devices(device) -> list[torch.device]:
+    """The lane ``encode`` runs on for ``device``: every visible card for
+    a CUDA device without an index (``make_mesh``), else ``device`` alone
+    (``"cuda:N"``, ``"cpu"``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return make_mesh()
+    return [dev]
+
+
 def encode(data: bytes, level: int = 0, device="cuda",
            block_size: int = BLOCK_SIZE_IN,
            max_tokens: int = BLOCK_SIZE_ROLZ) -> bytes:
-    """Encode on ``device``; byte-identical to ``spec.encode`` at the same
-    geometry (the canonical stream by default)."""
+    """Encode over ``encode_devices(device)``, ``GROUP_BLOCKS`` blocks a
+    card and group; byte-identical to ``spec.encode`` at the same geometry
+    (the canonical stream by default) on any number of cards."""
     with metrics.stage("encode"):
-        return mesh_encode(data, level, [resolve_device(device)],
+        return mesh_encode(data, level, encode_devices(device),
                            block_size=block_size, max_tokens=max_tokens,
                            blocks_per_device=GROUP_BLOCKS)
 
@@ -67,7 +82,8 @@ def decode_args(data: bytes, device):
 
 
 def decode(data: bytes, device="cuda", fused: bool = True) -> bytes:
-    """Decode a zling stream on ``device``; raises ValueError if corrupt.
+    """Decode a zling stream on ``device`` (``"cuda"``: the current card,
+    one card in any case); raises ValueError if corrupt.
 
     ``fused=False`` runs the split pair K1 -> K2 instead of K3; the two
     differ only on corrupt input, as the JAX package's two layouts do.

@@ -27,11 +27,11 @@ device's current stream waits for before ``finish``'s stages, so that the
 tokenize and relabel of a later group can be queued on a side stream
 (``parallel/mesh.py::Lanes``) while this one is finished.
 
-``device.encode`` is the lanes' one-device case, with up to
-``GROUP_BLOCKS`` = 8 blocks in its run.  At canonical geometry that
-is 128 MiB of input and ~84 MB of bucket state on the card, and the blocks
-of a group tokenize in parallel; only the current group's bytes (and the
-next one's) are on the device.
+``device.encode`` runs the lanes over every visible card, up to
+``GROUP_BLOCKS`` = 8 blocks in each card's run.  At canonical geometry
+that is 128 MiB of input and ~84 MB of bucket state on a card, and the
+blocks of a run tokenize in parallel; only the current group's bytes (and
+the next one's) are on the devices.
 """
 
 from __future__ import annotations

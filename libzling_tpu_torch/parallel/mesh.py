@@ -15,7 +15,8 @@ the d-th run of ``blocks_per_device`` consecutive blocks
   [chain]       the MTF carry (the counterpart of the ppermute ring,
                 mesh.py:170-175, 200-215): device 0 relabels with K5 from
                 the carried state, the state goes ``.to()`` device 1, ...,
-                device D-1, whose exit state is the group's carry;
+                device D-1, whose exit state is the group's carry, handed
+                to device 0 by the next group's chain (``Lanes.hand``);
   [each device] per-chunk histograms, then exact length tables on the
                 host, then canonical codes and packing;
   [host]        serial schedule validation in block order over every run;
@@ -131,20 +132,25 @@ class Lanes:
     def hand(self, state, src, dst: int):
         """The MTF state produced by entry ``src`` (None: present where
         ``dst`` reads it), made ready for entry ``dst``: its stream waits
-        for ``src``'s, and the state moves to its device."""
+        for ``src``'s, and the state moves to its device.  A hand between
+        two cards is the span ``zling.enc.hand`` (the wait and the copy)
+        and counts ``enc.card_hands``; a hand on one card opens neither."""
         if src is None or src == dst:
             return state
         s_src, s_dst = self.streams[src], self.streams[dst]
         if s_dst is None:
             return state
-        s_dst.wait_stream(s_src)
         if self.devices[src] == self.devices[dst]:
+            s_dst.wait_stream(s_src)
             state.record_stream(s_dst)
             return state
-        # a copy between devices runs on the source's current stream
-        # after the destination's, which then waits for it
-        with torch.cuda.stream(s_src), torch.cuda.stream(s_dst):
-            return state.to(self.devices[dst], non_blocking=True)
+        # a copy between cards runs on the source's current stream after
+        # the destination's, which then waits for it
+        metrics.registry.count("enc.card_hands")
+        with metrics.stage("enc.hand"):
+            s_dst.wait_stream(s_src)
+            with torch.cuda.stream(s_src), torch.cuda.stream(s_dst):
+                return state.to(self.devices[dst], non_blocking=True)
 
     def group_exit(self, state, last: int):
         """The group's exit state and the entry it lies on."""
@@ -291,7 +297,8 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     ``elastic`` an exception propagates and no copy is queued.
 
     Every stage is a span (``metrics.stage``): ``zling.enc.dispatch``
-    (within it ``enc.launch``, one K4 + K5 pass, and ``enc.stage``, the
+    (within it ``enc.launch``, one K4 + K5 pass, with ``enc.hand`` for
+    each hand of the MTF state between two cards, and ``enc.stage``, the
     runs' buffers), ``enc.launch`` alone for a re-run after a fix,
     ``enc.failover``, and the stages below as ``zling.enc.<stage>``
     (``Part.finish`` adds ``enc.wait``, ``Part.tokenize`` /

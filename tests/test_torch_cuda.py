@@ -552,6 +552,49 @@ def test_lanes_over_two_gpus():
         assert mesh_decode(stream, devs, group_blocks=2) == data
 
 
+def test_encode_over_every_visible_card(tmp_path):
+    # api.encode on "cuda" runs the lanes on every visible card: two groups
+    # at the canonical geometry, the second over cards 0 and 1, its last
+    # block short, held to the native engine's canonical stream (the
+    # tier-1 tests hold it to spec.encode), which a thread makes meanwhile
+    import json
+    import threading
+
+    from libzling_tpu_torch.native import engine
+    from libzling_tpu_torch.probes import sweep_tokenize as sw
+    from libzling_tpu_torch.tables import BLOCK_SIZE_IN
+    from libzling_tpu_torch.utils import metrics
+
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip("needs two CUDA GPUs")
+    nblocks = (n + 1) * GROUP_BLOCKS + 2
+    base = np.frombuffer(sw.corpus_slice(BLOCK_SIZE_IN), np.uint8)
+    data = np.concatenate([np.roll(base, 4099 * k) for k in range(nblocks)])
+    data = data[:(nblocks - 1) * BLOCK_SIZE_IN + 12345].tobytes()
+    want = {}
+    ref = threading.Thread(target=lambda: want.update(
+        stream=engine.encode(data, 4)))
+    ref.start()
+    metrics.registry.reset()
+    path = tmp_path / "trace.json"
+    with metrics.trace("call", str(path)):
+        got = zt.encode(data, 4, device="cuda")
+    ref.join(timeout=600)
+    assert not ref.is_alive() and got == want["stream"]
+    counters = metrics.registry.snapshot()["counters"]
+    assert counters.get("enc.pipeline_redispatch", 0) == 0
+    assert counters.get("enc.schedule_mispredicts", 0) == 0
+    # the first group's chain hands n - 1 times; the second's from card
+    # n - 1 to card 0 and from 0 to 1
+    assert counters["enc.card_hands"] == n + 1
+    events = json.loads(path.read_text())["traceEvents"]
+    assert sum(1 for e in events if e.get("cat") == "user_annotation"
+               and e.get("name") == "zling.enc.hand") == n + 1
+    assert {e["args"]["device"] for e in events if e.get("cat") == "kernel"
+            and "tokenize_kernel" in e.get("name", "")} == set(range(n))
+
+
 def test_stream_on_card_equals_the_engine(cuda):
     # the canonical geometry, one block a group: a 17 MiB corpus is two
     # groups, with the look-ahead and a group edge
