@@ -4,11 +4,13 @@ Counterpart of ``libzling_tpu/device.py`` (``encode``, ``decode``).
 
   encode: ``parallel/mesh.py::mesh_encode`` over the lane's cards
       (``encode_devices``: every visible card for ``"cuda"``, the one card
-      named by ``"cuda:N"``, the host for ``"cpu"``), ``GROUP_BLOCKS``
-      blocks a card and group (``group_encode.Part``'s stages: K4
-      tokenize, K5 relabel, torch Huffman stages, host length tables and
-      framing), the MTF state handed card to card -- at the canonical 16
-      MiB / 262,144-token geometry by default;
+      named by ``"cuda:N"``, the host for ``"cpu"``; ``group_encode.Part``'s
+      stages: K4 tokenize, K5 relabel, torch Huffman stages, host length
+      tables and framing), the MTF state handed card to card; on cards
+      the input is spread evenly over them in one group where it fits
+      (``one_shot_run_blocks``), on the host ``GROUP_BLOCKS`` blocks a
+      group -- at the canonical 16 MiB / 262,144-token geometry by
+      default;
   decode: on one card (``"cuda"`` is the current one): host parse
       (``container.parse``, ``unpack_length_tables``), then either the
       fused kernel K3 (the default), which writes every block's
@@ -54,16 +56,55 @@ def encode_devices(device) -> list[torch.device]:
     return [dev]
 
 
+# Device memory a block of a run takes at the canonical geometry, at the
+# peak of an encode with the look-ahead group resident beside it: K4's and
+# K5's buffers and the Huffman stages' int64 temporaries, which grow with
+# the units, so incompressible input (a unit a byte) takes the most.  The
+# largest measured, on an NVIDIA H100 80GB HBM3: a peak of 20,322,513,920 B
+# over 8 blocks a run, for 16 blocks of random bytes at e4 (two groups and
+# a level drop); text at e4 / e0, 15 a run: 708 / 739 MB a block.
+RUN_BLOCK_BYTES = 2_540_314_240
+
+
+def run_cap(devices) -> int:
+    """The most blocks a card's run may hold on the cards ``devices``: one
+    K4 CTA a block on each of the smallest card's SMs, so that no CTA
+    waits for another, and a run with the look-ahead beside it
+    (``RUN_BLOCK_BYTES`` a block) in half its memory: 16 on an 80 GB
+    H100."""
+    caps = []
+    for d in set(devices):
+        p = torch.cuda.get_device_properties(d)
+        caps.append(min(p.multi_processor_count,
+                        p.total_memory // (2 * RUN_BLOCK_BYTES)))
+    return max(1, min(caps))
+
+
+def one_shot_run_blocks(n_blocks: int, n_cards: int, cap: int) -> int:
+    """Blocks a card's run holds when a call encodes ``n_blocks`` blocks
+    over ``n_cards`` cards: all of them in one group, spread evenly, up to
+    ``cap`` a card; above ``cap`` x ``n_cards`` blocks the call runs in
+    groups of ``cap`` a card."""
+    return max(1, min(-(-n_blocks // n_cards), cap))
+
+
 def encode(data: bytes, level: int = 0, device="cuda",
            block_size: int = BLOCK_SIZE_IN,
            max_tokens: int = BLOCK_SIZE_ROLZ) -> bytes:
-    """Encode over ``encode_devices(device)``, ``GROUP_BLOCKS`` blocks a
-    card and group; byte-identical to ``spec.encode`` at the same geometry
-    (the canonical stream by default) on any number of cards."""
+    """Encode over ``encode_devices(device)``; byte-identical to
+    ``spec.encode`` at the same geometry (the canonical stream by default)
+    on any number of cards and at any run size.  On cards each run holds
+    ``one_shot_run_blocks`` blocks, so that a call of up to ``run_cap``
+    blocks a card is one group, one K4 launch a card; on the host
+    ``GROUP_BLOCKS``."""
     with metrics.stage("encode"):
-        return mesh_encode(data, level, encode_devices(device),
-                           block_size=block_size, max_tokens=max_tokens,
-                           blocks_per_device=GROUP_BLOCKS)
+        devices = encode_devices(device)
+        bpd = GROUP_BLOCKS
+        if devices[0].type == "cuda":
+            bpd = one_shot_run_blocks(-(-len(data) // block_size),
+                                      len(devices), run_cap(devices))
+        return mesh_encode(data, level, devices, block_size=block_size,
+                           max_tokens=max_tokens, blocks_per_device=bpd)
 
 
 def decode_args(data: bytes, device):

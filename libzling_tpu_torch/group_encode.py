@@ -27,11 +27,14 @@ device's current stream waits for before ``finish``'s stages, so that the
 tokenize and relabel of a later group can be queued on a side stream
 (``parallel/mesh.py::Lanes``) while this one is finished.
 
-``device.encode`` runs the lanes over every visible card, up to
-``GROUP_BLOCKS`` = 8 blocks in each card's run.  At canonical geometry
-that is 128 MiB of input and ~84 MB of bucket state on a card, and the
-blocks of a run tokenize in parallel; only the current group's bytes (and
-the next one's) are on the devices.
+The streamed routes (``utils/io.py``, ``utils/checkpoint.py``) and
+``device.encode`` on the host put up to ``GROUP_BLOCKS`` = 8 blocks in
+each device's run.  At canonical geometry that is 128 MiB of input and
+~84 MB of bucket state on a card, and the blocks of a run tokenize in
+parallel; only the current group's bytes (and the next one's) are on the
+devices.  ``device.encode`` on cards sizes each run from the input
+(``device.one_shot_run_blocks``), so that a call is one group where the
+cards hold it.
 """
 
 from __future__ import annotations

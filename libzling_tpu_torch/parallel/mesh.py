@@ -305,6 +305,9 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     ``Part.relabel`` ``enc.tokenize`` / ``enc.relabel``).  No span stays
     open across the ``yield``.
 
+    Each group framed counts ``enc.groups`` (one a ``zling.enc.frame``
+    span).
+
     ``stage_probe``: a dict to which each stage adds its wall seconds,
     summed over the groups, with every CUDA device of this process's
     entries synchronised as the stage ends (a measurement mode: the host
@@ -485,6 +488,7 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
                 cur["n"])
         with span("enc.frame"):
             out = checked(cur, lambda: ge.frame(views))
+        metrics.registry.count("enc.groups")
         return out, expected, passes == 1
 
     def take(it):

@@ -7,8 +7,9 @@ compile-gated debug counters, src/libzling_debug.h:38-49).  The lanes
 count ``enc.schedule_mispredicts`` (extra validation passes of a group),
 ``enc.pipeline_redispatch`` (look-ahead groups launched again) and
 ``enc.group_failover`` (groups encoded again on the host, ``elastic``)
-under the JAX package's names, and ``enc.card_hands`` (hands of the MTF
-state from one card to another, ``Lanes.hand``); the host pipeline adds
+under the JAX package's names, ``enc.card_hands`` (hands of the MTF
+state from one card to another, ``Lanes.hand``) and ``enc.groups`` (groups
+framed by ``parallel/mesh.py::encode_groups``); the host pipeline adds
 ``enc.level_drops``, ``enc.blocks``, ``enc.chunks``, ``dec.blocks`` and
 ``dec.chunks``.
 

@@ -114,9 +114,13 @@ def test_round_trip_across_groups_on_card(cuda, level):
     want = spec.encode(data, level, stats=stats, block_size=1024,
                        max_tokens=400)
     assert stats.level_drops > 0 and stats.blocks > GROUP_BLOCKS
-    stream = zt.encode(data, level, device=cuda, block_size=1024,
-                       max_tokens=400)
+    # the lanes at GROUP_BLOCKS a group on one card, as the streamed
+    # routes run them; the one-shot route makes these ten blocks one group
+    stream = mesh.mesh_encode(data, level, [cuda], block_size=1024,
+                              max_tokens=400, blocks_per_device=GROUP_BLOCKS)
     assert stream == want
+    assert zt.encode(data, level, device=cuda, block_size=1024,
+                     max_tokens=400) == want
     assert zt.decode(stream, device=cuda) == data
 
 
@@ -552,11 +556,14 @@ def test_lanes_over_two_gpus():
         assert mesh_decode(stream, devs, group_blocks=2) == data
 
 
-def test_encode_over_every_visible_card(tmp_path):
-    # api.encode on "cuda" runs the lanes on every visible card: two groups
-    # at the canonical geometry, the second over cards 0 and 1, its last
-    # block short, held to the native engine's canonical stream (the
-    # tier-1 tests hold it to spec.encode), which a thread makes meanwhile
+@pytest.mark.parametrize("route", ["lanes", "one_shot"])
+def test_encode_over_every_visible_card(tmp_path, route):
+    # every visible card at the canonical geometry, held to the native
+    # engine's canonical stream (the tier-1 tests hold it to spec.encode),
+    # which a thread makes meanwhile.  "lanes": mesh_encode at
+    # GROUP_BLOCKS a card, two groups, the second's last block short;
+    # "one_shot": api.encode on "cuda", the same input in one group, one
+    # K4 launch a card
     import json
     import threading
 
@@ -579,20 +586,28 @@ def test_encode_over_every_visible_card(tmp_path):
     metrics.registry.reset()
     path = tmp_path / "trace.json"
     with metrics.trace("call", str(path)):
-        got = zt.encode(data, 4, device="cuda")
+        if route == "lanes":
+            got = mesh.mesh_encode(data, 4, mesh.make_mesh(),
+                                   blocks_per_device=GROUP_BLOCKS)
+        else:
+            got = zt.encode(data, 4, device="cuda")
     ref.join(timeout=600)
     assert not ref.is_alive() and got == want["stream"]
     counters = metrics.registry.snapshot()["counters"]
     assert counters.get("enc.pipeline_redispatch", 0) == 0
     assert counters.get("enc.schedule_mispredicts", 0) == 0
-    # the first group's chain hands n - 1 times; the second's from card
-    # n - 1 to card 0 and from 0 to 1
-    assert counters["enc.card_hands"] == n + 1
+    # the first group's chain hands n - 1 times; a second group's from
+    # card n - 1 to card 0 and from 0 to 1
+    groups, hands = (2, n + 1) if route == "lanes" else (1, n - 1)
+    assert counters["enc.groups"] == groups
+    assert counters["enc.card_hands"] == hands
     events = json.loads(path.read_text())["traceEvents"]
     assert sum(1 for e in events if e.get("cat") == "user_annotation"
-               and e.get("name") == "zling.enc.hand") == n + 1
-    assert {e["args"]["device"] for e in events if e.get("cat") == "kernel"
-            and "tokenize_kernel" in e.get("name", "")} == set(range(n))
+               and e.get("name") == "zling.enc.hand") == hands
+    k4 = [e["args"]["device"] for e in events if e.get("cat") == "kernel"
+          and "tokenize_kernel" in e.get("name", "")]
+    # one K4 launch a card and group; the second group runs on cards 0, 1
+    assert sorted(k4) == sorted([*range(n), *([0, 1] * (groups - 1))])
 
 
 def test_stream_on_card_equals_the_engine(cuda):

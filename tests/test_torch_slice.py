@@ -20,6 +20,8 @@ from libzling_tpu import device as jdevice
 from libzling_tpu import spec
 from libzling_tpu.tables import LEVEL_PARAMS
 from libzling_tpu_torch.group_encode import GROUP_BLOCKS
+from libzling_tpu_torch.parallel import mesh_encode
+from libzling_tpu_torch.utils import metrics
 
 
 def _text_and_random(seed: int = 7) -> bytes:
@@ -66,9 +68,14 @@ def test_encode_matches_spec_across_groups(level):
     want = spec.encode(data, level, stats=stats, block_size=1024,
                        max_tokens=400)
     assert stats.level_drops > 0 and stats.blocks > GROUP_BLOCKS
-    got = zt.encode(data, level, device="cpu", block_size=1024,
-                    max_tokens=400)
+    # the lanes at GROUP_BLOCKS a group, as the streamed routes run them
+    metrics.registry.reset()
+    got = mesh_encode(data, level, ["cpu"], block_size=1024, max_tokens=400,
+                      blocks_per_device=GROUP_BLOCKS)
+    assert metrics.registry.snapshot()["counters"]["enc.groups"] == 2
     assert got == want
+    assert zt.encode(data, level, device="cpu", block_size=1024,
+                     max_tokens=400) == want
     assert zt.decode(got, device="cpu") == data
 
 
