@@ -67,8 +67,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      of the 20 MiB e4 input, each stream equal to the native engine's and
      to ``encode``'s, K4 and K5 launched at least twice each, with the
      ``enc.*`` counters; ``mesh_decode`` (one block a group) of both back
-     to the input, K1 at least twice a group and K2 once, then a
-     ``stage_probe`` run and the phase-5 corrupt streams (ValueError);
+     to the input, K1 at least twice a group and K2 once, then the
+     phase-5 corrupt streams (ValueError);
      then ``distributed_encode`` and ``distributed_decode`` of the 32 MiB
      e0 input in two worker processes (``--lanes-worker``, gloo, one rank
      a GPU or both on the card, the kernels built by this process first,
@@ -127,8 +127,7 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      libzling_tpu_torch.bench`` (``BENCH_ARGS``) in a subprocess with a
      time limit -- exit 0, a last JSON line with every section and
      nothing skipped; one ``[bench]`` line with its headline, host table,
-     each path's MB/s, K1-K5's event times with their spreads and the
-     encode and decode stages.
+     each path's MB/s and K1-K5's event times with their spreads.
 
 A ``[per unit]`` line gives K4 (e0, e4), K3 and K2 per unit (K1 and K2 per
 token -- K1 also at e4 and per chunk kind --, K5 per literal of its
@@ -192,14 +191,6 @@ def max_abs_err(pairs) -> int:
         d = (got.to(torch.int64) - want.to(torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
-
-
-def covered_share(k4stat) -> float:
-    """The share of K4's token starts whose lines its run-ahead warps had
-    read before the walker came to them (``k4stat``: per block, starts
-    and covered starts)."""
-    starts, covered = k4stat.cpu().sum(0).tolist()
-    return covered / max(starts, 1)
 
 
 def on(args, dev):
@@ -866,7 +857,7 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
     # e0 stream (phase 4) and to the plain version at small geometry
     got = []
     ms = cuda_ms(lambda: got.append(tkk.tokenize(bufd, *args)), 1, False)
-    units, upos, cstat, bstat, k4stat = (t.cpu() for t in got[0])
+    units, upos, cstat, bstat = (t.cpu() for t in got[0])
     assert not bstat[:, 1].any()
     cnt = cstat[:, :, 0].sum(1)
     b = int(cnt.argmax())
@@ -884,8 +875,7 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
         ms=ms, plain_ms=plain_ms, plain_block=b,
         bytes=nbytes(buf, *args, cstat, bstat) + 8 * int(cnt.sum()),
         # K4's blocks run side by side: its time is its longest block's walk
-        units=int(cnt.sum()), walker_units=int(cnt.max()),
-        runahead_covered=covered_share(k4stat))
+        units=int(cnt.sum()), walker_units=int(cnt.max()))
     # K4 alone at the e4 main path's shapes: 20 MiB, the schedule
     # group_encode launches first at e4 (level 4 in every chunk slot)
     n4 = 20 * MiB
@@ -899,8 +889,7 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
     assert not got[0][3][:, 1].any()
     rows["tokenize"]["e4"] = dict(
         ms=ms, units=int(got[0][2][:, :, 0].sum()),
-        walker_units=int(got[0][2][:, :, 0].sum(1).max()), bytes=n4,
-        runahead_covered=covered_share(got[0][4]))
+        walker_units=int(got[0][2][:, :, 0].sum(1).max()), bytes=n4)
 
     rargs = (units, offs, cnt, mops.initial_state("cpu"),
              mops.mtf_next("cpu"))
@@ -1167,7 +1156,7 @@ def check_lanes(drive, launches: dict, engine, x32: bytes, s32: bytes,
     crosses a device edge and a group edge, and the look-ahead runs) and
     on the 20 MiB e4 input, each stream equal to the native engine's and
     to ``encode``'s; ``mesh_decode`` (one block a group) back to the input,
-    with a stage-probe run, and the corrupt streams rejected; then
+    and the corrupt streams rejected; then
     ``distributed_encode`` and ``distributed_decode`` in two gloo worker
     processes on the card(s), on the 32 MiB e0 input, whose launches are
     added to ``launches`` (``drive`` adds the others').  Returns each
@@ -1204,12 +1193,6 @@ def check_lanes(drive, launches: dict, engine, x32: bytes, s32: bytes,
         assert n["entropy_decode"] >= 2 * blocks and \
             n["resolve"] == blocks, n
         line(f"mesh_decode {tag}", x, sec, launches=n)
-    probe = {}
-    back, sec, _ = drive(lambda: parallel.mesh_decode(
-        s48, devs, stage_probe=probe), split)
-    assert back == x48
-    print("[lanes mesh_decode e0 48 MiB stage_probe] " + json.dumps(
-        dict(card=card, s=sec, **probe)), flush=True)
     for name, bad in corrupt.items():
         try:
             parallel.mesh_decode(bad, devs)
@@ -1495,9 +1478,9 @@ class PartFaults:
             f.fire(part._group, "dispatch")
             orig["__init__"](part, data, *a, **k)
 
-        def finish(part, *a):
+        def finish(part):
             f.fire(part._group, "finish")
-            return orig["finish"](part, *a)
+            return orig["finish"](part)
 
         def tokenize(part, rows):
             if part.device == f.device:
@@ -1825,9 +1808,9 @@ def check_bench(card: str) -> dict:
     """Phase 13: ``python -m libzling_tpu_torch.bench`` (``BENCH_ARGS``)
     in a subprocess with a time limit.  A timeout or a non-zero exit
     fails; its last line must hold every section and skip none.  One
-    ``[bench]`` line: the headline and host table, each card path's MB/s,
-    K1-K5's CUDA-event ms ({n, min, median}) and the lanes' stages, beside
-    the card's name and power limit.  Returns a summary."""
+    ``[bench]`` line: the headline and host table, each card path's MB/s
+    and K1-K5's CUDA-event ms ({n, min, median}), beside the card's name
+    and power limit.  Returns a summary."""
     from libzling_tpu_torch import bench
 
     t = time.perf_counter()
@@ -1857,18 +1840,13 @@ def check_bench(card: str) -> dict:
         decode_mbps={p: dec[p]["mbps"] for p in ("fused", "split",
                                                  "groups")},
         literal_k3_mbps=dec["literal"]["mbps"], encode_mbps=api["mbps"],
-        lanes_mbps=dict(encode=c["lanes"]["encode_mbps"],
-                        decode=c["lanes"]["decode_mbps"]),
         kernel_ms=dict(
             tokenize_2MiB=c["tokenize"]["kernel_ms"],
             tokenize=api["kernel_ms"]["tokenize"],
             relabel=api["kernel_ms"]["relabel"],
             decode_fused=dec["fused"]["kernel_ms"]["decode_fused"],
             entropy_decode=dec["split"]["kernel_ms"]["entropy_decode"],
-            resolve=dec["split"]["kernel_ms"]["resolve"]),
-        encode_stages=c["lanes"]["encode_stage_seconds"],
-        decode_stages=c["lanes"]["decode_stage_seconds"],
-        serial_fraction=c["lanes"]["encode_serial_fraction"])
+            resolve=dec["split"]["kernel_ms"]["resolve"]))
     print("[bench] " + json.dumps(row), flush=True)
     return dict(s=sec, headline=got["value"])
 
@@ -2009,11 +1987,6 @@ def main() -> int:
             back, sec, n = drive(fn, want)
             assert back == x, f"e{level} {name} round trip differs"
             times[name] = dict(s=sec, MBps=len(x) / sec / 1e6, launches=n)
-        probe = {}
-        back, sec, _ = drive(lambda: z.decode_groups(
-            stream, group_blocks=1, stage_probe=probe), split)
-        assert back == x
-        times["groups_probe"] = dict(s=sec, **probe)
         main_times[level] = times
         t0 = phase(f"main e{level}", t0, json.dumps(dict(
             bytes=len(x), stream=len(stream), ratio=len(stream) / len(x),

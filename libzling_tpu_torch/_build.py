@@ -55,9 +55,9 @@ _SIGNATURES = {
     "zlt_resolve": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],
     # buf, block_off, block_len, unit_off, params, n_blocks, max_chunks,
     # max_tokens, hash, suffix, offset, units, upos, chunk_stat,
-    # block_stat, k4stat, stream
+    # block_stat, stream
     "zlt_tokenize": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                     _P, _P, _P],
+                     _P, _P],
     # units, unit_off, unit_cnt, n_blocks, state_in, mtfnext, units_out,
     # state_out, stream
     "zlt_relabel": [_P, _P, _P, _I, _P, _P, _P, _P, _P],

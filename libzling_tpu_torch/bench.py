@@ -1,7 +1,7 @@
 """The benchmark harness: the counterpart of the repo-level ``bench.py`` and
 of the device tools it runs (``tools/bench_device_encode.py``,
-``bench_device_decode.py``, ``bench_device_api.py``, ``bench_device.py``,
-``run_canonical_mesh.py --probe`` and ``bench_mesh_decode.py``).
+``bench_device_decode.py``, ``bench_device_api.py`` and
+``bench_device.py``).
 
     python -m libzling_tpu_torch.bench [--device cuda|cpu] [--host-mb 100]
         [--device-mb 32] [--literal-mb 8] [--repeats 3] [--levels 0-6]
@@ -32,11 +32,6 @@ order:
                  (bench_device_api);
   ``<device>.entropy``     K1 over every chunk of that stream, its tokens
                  held to the engine's (bench_device);
-  ``<device>.lanes``       ``mesh_encode`` over the one device, plain and
-                 with ``stage_probe``, the serial fractions and the scaling
-                 model of bench.py:266-299; ``mesh_decode`` plain and with
-                 its ``stage_probe`` (run_canonical_mesh --probe,
-                 bench_mesh_decode);
   ``counters``   a ``ZLT_COUNTERS=1`` process's e0 host encode rate and the
                  engine's match-loop counters; the metrics registry.
 
@@ -90,7 +85,6 @@ from .ops import mtf as mops
 from .ops import relabel_kernel as rlk
 from .ops import resolve_kernel as rk
 from .ops import tokenize_kernel as tkk
-from .parallel import decode_mesh, mesh
 from .tables import BLOCK_SIZE_IN, BLOCK_SIZE_ROLZ, SENTINEL_LEN
 from .utils import metrics
 
@@ -368,8 +362,8 @@ def s_tokenize(run: Run) -> dict:
     x = run.x[:TOKENIZE_BYTES]
     args = k4_args(x, run.dev)
 
-    def k4():  # K4's outputs less its run-ahead counts (they vary)
-        return tkk.tokenize(*args)[:4]
+    def k4():
+        return tkk.tokenize(*args)
 
     got, first = run.wall(k4)
     want = tkk.tokenize_plain(*k4_args(x, "cpu"))
@@ -449,7 +443,7 @@ def s_encode_api(run: Run) -> dict:
                   lambda: api.encode(x, 0, device=dev), run.stream)
     args = k4_args(x, dev)
     t_k4, (units, _, cstat, _) = run.kernel_ms(
-        lambda: tkk.tokenize(*args)[:4], same_as_first("K4"))
+        lambda: tkk.tokenize(*args), same_as_first("K4"))
     rargs = (units, args[1], cstat[:, :, 0].sum(1), mops.initial_state(dev),
              mops.mtf_next(dev))
     t_k5, _ = run.kernel_ms(lambda: rlk.relabel(*rargs), same_as_first("K5"))
@@ -485,56 +479,8 @@ def s_entropy(run: Run) -> dict:
                 mbps=len(run.x) / times["min"] / 1e3)
 
 
-def s_lanes(run: Run) -> dict:
-    """``mesh_encode`` and ``mesh_decode`` over the one device, plain and
-    probed, and the scaling model of bench.py:266-299 with this run's K5
-    time a block (run_canonical_mesh.py --probe, bench_mesh_decode.py)."""
-    x, dev, want = run.x, run.dev, run.stream
-    got, enc_s = run.wall(lambda: mesh.mesh_encode(x, 0, [dev]))
-    gate(got == want, "mesh_encode: the device's stream vs the engine's")
-    stages: dict = {}
-    got, probe_s = run.wall(lambda: mesh.mesh_encode(x, 0, [dev],
-                                                     stage_probe=stages))
-    gate(got == want, "mesh_encode (probed): the stream vs the engine's")
-    n_blocks = -(-len(x) // BLOCK_SIZE_IN)
-    d_blk = (stages["encode_step"] + stages["pack_step"]) / n_blocks
-    h_cpu = (stages["length_tables"] + stages["validate"]
-             + stages["frame"]) / n_blocks
-    h_io = (stages["gather_freqs"] + stages["gather_pack_meta"]
-            + stages["gather_words"]) / n_blocks
-    # K5 is the group's serial carry: its time a block, from this run
-    t_c = run.out["encode_api"]["kernel_ms"]["relabel"]["median"] / 1e3 \
-        / run.out["encode_api"]["blocks"]
-    tot = sum(stages.values())
-
-    def eff(d: int, h: float) -> float:
-        return min(1.0, max(d_blk, t_c + h) / max(d_blk, d * t_c, d * h))
-
-    back, dec_s = run.wall(lambda: decode_mesh.mesh_decode(want, [dev]))
-    gate(back == x, "round trip: mesh_decode")
-    dstages: dict = {}
-    back, dprobe_s = run.wall(lambda: decode_mesh.mesh_decode(
-        want, [dev], stage_probe=dstages))
-    gate(back == x, "round trip: mesh_decode (probed)")
-    ent, res = dstages["entropy_s"], dstages["resolve_s"]
-    return dict(
-        bytes=len(x), blocks=n_blocks, encode_s=enc_s,
-        encode_mbps=len(x) / enc_s / MB, encode_probe_s=probe_s,
-        encode_stage_seconds=stages,
-        encode_serial_fraction=(h_cpu + h_io) * n_blocks / tot,
-        encode_serial_fraction_compute=h_cpu * n_blocks / tot,
-        relabel_s_per_block=t_c,
-        projected_scaling_8chip_this_host=eff(8, h_cpu + h_io),
-        decode_s=dec_s, decode_mbps=len(x) / dec_s / MB,
-        decode_probe_s=dprobe_s, decode_stage_seconds=dstages,
-        decode_resolve_bound_mbps=len(x) / res / MB,
-        decode_projected_mbps={d: len(x) / max(res, ent / d) / MB
-                               for d in (1, 2, 4, 8)})
-
-
 SECTIONS = {"tokenize": s_tokenize, "decode": s_decode,
-            "encode_api": s_encode_api, "entropy": s_entropy,
-            "lanes": s_lanes}
+            "encode_api": s_encode_api, "entropy": s_entropy}
 
 
 def main(argv=None) -> int:

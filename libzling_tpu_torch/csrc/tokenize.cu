@@ -47,10 +47,9 @@
 // and the window ends at the block's match limit.  They only read: a
 // stale line costs a wasted prefetch, never a different result, and the
 // walker never waits for them.  The walker publishes its position and
-// depth in shared memory and counts its token starts, and those a
-// run-ahead warp had reached first, into `k4stat`.  On an H100 they take
-// ~30% off the head step and ~10% off a chain step; what is left of a
-// unit is the walker's own chain of dependent instructions.
+// depth in shared memory.  On an H100 they take ~30% off the head step
+// and ~10% off a chain step; what is left of a unit is the walker's own
+// chain of dependent instructions.
 //
 // Bucket state is in global memory, allocated and initialised by the
 // wrapper (hash heads and suffix links to 0xFFFF, offsets to 0); ring
@@ -224,14 +223,12 @@ __device__ __forceinline__ void mru_push(int* mru, int c, int w) {
   mru[c * 2] = w;
 }
 
-// What the walker and the run-ahead warps tell each other, in shared
-// memory (read and written through a volatile reference).
+// What the walker tells the run-ahead warps, in shared memory (read and
+// written through a volatile reference).
 struct RunAhead {
-  int pos;            // the walker's position
-  int depth;          // the current chunk's search depth
-  int done;           // set once the walker has left the block
-  int front[kAhead];  // run-ahead warp w has read every position of its
-                      // groups below front[w]
+  int pos;    // the walker's position
+  int depth;  // the current chunk's search depth
+  int done;   // set once the walker has left the block
 };
 
 // Positions a run-ahead warp may read ahead of the walker: as many as the
@@ -316,8 +313,6 @@ __device__ void run_ahead(const uint8_t* p, const Bucket& bk, int match_limit,
     const int q0 = g * kWarp, q = q0 + lane;
     if (q0 >= match_limit) return;
     if (q > pos && q > 1 && q < match_limit) read_ahead(p, q, depth, bk);
-    __syncwarp();
-    if (lane == 0) s.front[ra] = q0 + kWarp;
   }
 }
 
@@ -331,8 +326,7 @@ tokenize_kernel(const uint8_t* __restrict__ buf,
                 const int64_t* __restrict__ unit_off,
                 const int* __restrict__ params, int max_chunks, int max_tokens,
                 uint16_t* hash_all, uint16_t* sfx_all, uint32_t* ofs_all,
-                int* units, int* upos, int* chunk_stat, int* block_stat,
-                long long* k4stat) {
+                int* units, int* upos, int* chunk_stat, int* block_stat) {
   __shared__ int s_head[256];
   __shared__ int s_mru[512];
   __shared__ uint32_t s_cand[2 * kMaxLazy];
@@ -345,7 +339,6 @@ tokenize_kernel(const uint8_t* __restrict__ buf,
     ra.pos = 0;
     ra.depth = 0;   // until the walker publishes its chunk's depth
     ra.done = 0;
-    for (int w = 0; w < kAhead; ++w) ra.front[w] = 0;
   }
   __syncthreads();
 
@@ -363,7 +356,6 @@ tokenize_kernel(const uint8_t* __restrict__ buf,
   // warp 0: the walker
   int* uo = units + unit_off[b];
   int* po = upos + unit_off[b];
-  int starts = 0, covered = 0;   // the same on every lane
   int ipos = 0, cidx = 0, u = 0;
   while (ipos < ilen && cidx < max_chunks) {
     const int* prm = params + (static_cast<size_t>(b) * max_chunks + cidx) * 3;
@@ -390,17 +382,10 @@ tokenize_kernel(const uint8_t* __restrict__ buf,
         ++nt;
         continue;
       }
-      // the run-ahead's frontier of ipos's group, read by every lane (one
-      // broadcast load) and compared once the step is done, off the
-      // walker's chain
-      const int at = ipos;
-      const int front = ra.front[static_cast<unsigned>(at) / kWarp % kAhead];
       int mlen = 0, midx = 0;
-      const bool match = at < match_limit &&
-          match_and_update(p, at, depth, lazy1, lazy2, bk, s_head, s_cand,
+      const bool match = ipos < match_limit &&
+          match_and_update(p, ipos, depth, lazy1, lazy2, bk, s_head, s_cand,
                            lane, mlen, midx);
-      starts += at < match_limit;
-      covered += at < match_limit && front > at;
       if (match) {
         if (lane == 0)
           uo[u] = (258 + mlen - kMatchMin) | (3 << 10) | (midx << 14);
@@ -450,8 +435,6 @@ tokenize_kernel(const uint8_t* __restrict__ buf,
     ra.done = 1;
     block_stat[b * 2] = cidx;
     block_stat[b * 2 + 1] = ipos != ilen;
-    k4stat[b * 2] = starts;
-    k4stat[b * 2 + 1] = covered;
   }
 }
 
@@ -462,8 +445,7 @@ ZLT_API int zlt_tokenize(const void* buf, const void* block_off,
                          const void* params, int n_blocks, int max_chunks,
                          int max_tokens, void* hash, void* suffix,
                          void* offset, void* units, void* upos,
-                         void* chunk_stat, void* block_stat, void* k4stat,
-                         void* stream) {
+                         void* chunk_stat, void* block_stat, void* stream) {
   // L1 gets what shared memory leaves (a function attribute of the
   // current device)
   const cudaError_t e = cudaFuncSetAttribute(
@@ -477,7 +459,7 @@ ZLT_API int zlt_tokenize(const void* buf, const void* block_off,
       static_cast<uint16_t*>(hash), static_cast<uint16_t*>(suffix),
       static_cast<uint32_t*>(offset), static_cast<int*>(units),
       static_cast<int*>(upos), static_cast<int*>(chunk_stat),
-      static_cast<int*>(block_stat), static_cast<long long*>(k4stat));
+      static_cast<int*>(block_stat));
   return static_cast<int>(cudaGetLastError());
 }
 

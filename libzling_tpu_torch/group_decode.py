@@ -91,14 +91,13 @@ def parse(data: bytes) -> Stream | None:
                       np.cumsum([0] + list(block_sizes)).astype(np.int64))
 
 
-def decode_groups(data: bytes, device="cuda", group_blocks: int | None = 1,
-                  stage_probe: dict | None = None) -> bytes:
+def decode_groups(data: bytes, device="cuda", group_blocks: int | None = 1
+                  ) -> bytes:
     """Decode a zling stream on ``device``, ``group_blocks`` blocks at a time
     (None: every block in one group); raises ValueError if it is corrupt.
 
-    The one-device case of ``parallel/decode_mesh.py::mesh_decode``;
-    ``stage_probe`` as there.
+    The one-device case of ``parallel/decode_mesh.py::mesh_decode``.
     """
     from .parallel.decode_mesh import mesh_decode
 
-    return mesh_decode(data, [device], group_blocks, stage_probe)
+    return mesh_decode(data, [device], group_blocks)

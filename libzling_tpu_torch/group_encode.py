@@ -112,8 +112,7 @@ class Part:
     def tokenize(self, rows: np.ndarray) -> None:
         """Launch K4 under the per-chunk level rows [blocks, max_chunks]."""
         with metrics.stage("enc.tokenize"):
-            (self.units, _upos, self.cstat, self.bstat,
-             self.k4stat) = tkk.tokenize(
+            self.units, _upos, self.cstat, self.bstat = tkk.tokenize(
                 self.buf, self.block_off, self.block_len, self.block_off,
                 tkk.level_params(rows, self.device), self.max_tokens,
                 self.n_units)
@@ -132,36 +131,23 @@ class Part:
                 self.ready.record()
         return state_out
 
-    def finish(self, probe: dict | None = None, sync=()) -> View:
+    def finish(self) -> View:
         """Histograms, exact length tables and packing of the last pass;
         returns the host view without the words (computed once a pass).
-        Its stages are ``metrics.stage`` spans, timed into ``probe`` (the
-        encode stage probe; ``sync``: the devices it synchronises):
-        ``gather_freqs`` (the statistics and histograms, fetched; within
-        it ``enc.wait``, the host waiting for K4 and K5),
-        ``length_tables``, ``pack_step`` (codes and packing) and
-        ``gather_pack_meta`` (the bit counts and word offsets, fetched).
-        Adds K4's token starts and those its run-ahead warps had read
-        first to the counters ``enc.k4_starts`` and
-        ``enc.k4_runahead_covered`` (the kernel's launches only)."""
+        Its stages are ``metrics.stage`` spans: ``enc.gather_freqs`` (the
+        statistics and histograms, fetched; within it ``enc.wait``, the
+        host waiting for K4 and K5), ``enc.length_tables``,
+        ``enc.pack_step`` (codes and packing) and ``enc.gather_pack_meta``
+        (the bit counts and word offsets, fetched)."""
         if self._view is not None:
             return self._view
         dev = self.device
-
-        def span(name):
-            return metrics.stage("enc." + name, probe, None, sync)
-
-        with span("gather_freqs"):
+        with metrics.stage("enc.gather_freqs"):
             if self.ready is not None:
                 torch.cuda.current_stream(dev).wait_event(self.ready)
             with metrics.stage("enc.wait"):
                 cstat, bstat = self.cstat.cpu().numpy(), \
                     self.bstat.cpu().numpy()
-                if self.k4stat is not None:
-                    starts, covered = self.k4stat.cpu().sum(0).tolist()
-                    metrics.registry.count("enc.k4_starts", starts)
-                    metrics.registry.count("enc.k4_runahead_covered",
-                                           covered)
             if bstat[:, 1].any():
                 raise RuntimeError("tokenize: a block did not fit max_chunks")
             nchunks = bstat[:, 0].astype(np.int64)
@@ -182,17 +168,17 @@ class Part:
             idx = torch.where(((a >> 10) & 3) == 3, (a >> 14) & 4095, 0)
             freq1, freq2 = hops.unit_histograms(sym, idx, chunk, C)
             freq1, freq2 = freq1.cpu().numpy(), freq2.cpu().numpy()
-        with span("length_tables"):
+        with metrics.stage("enc.length_tables"):
             len1 = hops.exact_length_tables(freq1, HUFFMAN_MAX_LEN_1)
             len2 = hops.exact_length_tables(freq2, HUFFMAN_MAX_LEN_2)
-        with span("pack_step"):
+        with metrics.stage("enc.pack_step"):
             l1 = torch.as_tensor(len1.astype(np.int64), device=dev)
             l2 = torch.as_tensor(len2.astype(np.int64), device=dev)
             self.words, bits, word_off = hops.pack_units(
                 sym, idx, chunk, l1,
                 hops.canonical_codes(l1, HUFFMAN_MAX_LEN_1),
                 l2, hops.canonical_codes(l2, HUFFMAN_MAX_LEN_2))
-        with span("gather_pack_meta"):
+        with metrics.stage("enc.gather_pack_meta"):
             self._view = View(
                 nchunks,
                 np.concatenate([r[:, 1] for r in rows]).astype(np.int64),

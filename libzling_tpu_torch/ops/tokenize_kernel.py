@@ -43,16 +43,15 @@ Source note (``csrc/tokenize.cu``):
     depth, cut at the block's match limit) they read each position's hash
     head, chain nodes and candidates' first bytes, so that the walker's
     dependent loads find their lines in L1 (or, past the first three
-    nodes, L2).  They store nothing to global memory; the walker never
-    waits for them, and counts its token starts and those they had read
-    first (``k4stat``).  The bucket state (hash heads
-    u16 [256, 8192], suffix u16 [256, 4096], offset|check u32 [256, 4096])
-    is allocated and initialised by the wrapper; ring heads, the word-MRU
-    (reset per chunk), the lazy candidates (``MAX_LAZY`` a probe) and the
-    run-ahead's shared words are in shared memory, at the smallest
-    carveout; a chunk whose lazy depth exceeds ``MAX_LAZY`` ends its block
-    with err set.  Search depth is a runtime value, so levels 5 and 6
-    (depth 48 and 128) are exact.
+    nodes, L2).  They store nothing to global memory, and the walker never
+    waits for them.  The bucket state (hash heads u16 [256, 8192], suffix
+    u16 [256, 4096], offset|check u32 [256, 4096]) is allocated and
+    initialised by the wrapper; ring heads, the word-MRU (reset per
+    chunk), the lazy candidates (``MAX_LAZY`` a probe) and the run-ahead's
+    shared words are in shared memory, at the smallest carveout; a chunk
+    whose lazy depth exceeds ``MAX_LAZY`` ends its block with err set.
+    Search depth is a runtime value, so levels 5 and 6 (depth 48 and 128)
+    are exact.
 """
 
 from __future__ import annotations
@@ -90,19 +89,16 @@ def tokenize(buf, block_off, block_len, unit_off, params, max_tokens: int,
     block_off/unit_off i64 [B]; block_len i32 [B]; params i32
     [B, max_chunks, 3] (depth, lazy1, lazy2 per chunk).  Returns (units,
     upos i32 [n_units], chunk_stat i32 [B, max_chunks, 3] = (nunits, ntoks,
-    encpos), block_stat i32 [B, 2] = (n_chunks, err), k4stat); err is set
-    when a block is not fully tokenized within max_chunks chunks.  Lazy
-    depths above ``MAX_LAZY`` raise for CPU ``params`` and set err on the
-    card.  ``k4stat`` i64 [B, 2] = (token starts, token starts the
-    run-ahead warps had read before the walker came to them): the kernel's
-    own count, which depends on timing; None from the plain version, which
-    has no run-ahead.
+    encpos), block_stat i32 [B, 2] = (n_chunks, err)), as
+    ``tokenize_plain`` does; err is set when a block is not fully
+    tokenized within max_chunks chunks.  Lazy depths above ``MAX_LAZY``
+    raise for CPU ``params`` and set err on the card.
 
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     """
     if buf.device.type == "cpu":
-        return (*tokenize_plain(buf, block_off, block_len, unit_off, params,
-                                max_tokens, n_units), None)
+        return tokenize_plain(buf, block_off, block_len, unit_off, params,
+                              max_tokens, n_units)
     if buf.device.type != "cuda":
         raise ValueError(f"tokenize: unsupported device {buf.device}")
     from .. import _build
@@ -131,17 +127,16 @@ def tokenize(buf, block_off, block_len, unit_off, params, max_tokens: int,
         chunk_stat = torch.zeros((B, max_chunks, 3), dtype=torch.int32,
                                  device=dev)
         block_stat = torch.zeros((B, 2), dtype=torch.int32, device=dev)
-        k4stat = torch.zeros((B, 2), dtype=torch.int64, device=dev)
         err = _build.lib().zlt_tokenize(
             buf.data_ptr(), block_off.data_ptr(), block_len.data_ptr(),
             unit_off.data_ptr(), params.data_ptr(), B, max_chunks,
             max_tokens, hash_.data_ptr(), suffix.data_ptr(),
             offset.data_ptr(), units.data_ptr(), upos.data_ptr(),
-            chunk_stat.data_ptr(), block_stat.data_ptr(), k4stat.data_ptr(),
+            chunk_stat.data_ptr(), block_stat.data_ptr(),
             _build.stream_ptr(buf))
     _build.check(err, "zlt_tokenize")
     tokenize.launches += 1
-    return units, upos, chunk_stat, block_stat, k4stat
+    return units, upos, chunk_stat, block_stat
 
 
 tokenize.launches = 0
@@ -314,7 +309,7 @@ def tokenize_block(block, levels, max_tokens: int, max_chunks: int,
     buf[:ilen] = torch.as_tensor(raw.copy())
     zero = torch.zeros(1, dtype=torch.int64)
     params = level_params(np.asarray(levels)[:max_chunks], "cpu")[None]
-    units, upos, cstat, bstat, _ = tokenize(
+    units, upos, cstat, bstat = tokenize(
         buf.to(device), zero, torch.tensor([ilen], dtype=torch.int32), zero,
         params, max_tokens, ilen)
     units, upos = units.cpu().numpy(), upos.cpu().numpy()

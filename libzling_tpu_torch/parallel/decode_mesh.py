@@ -24,6 +24,8 @@ ported, because they are TPU layout: the chunk-pair padding and the
 uniform ``Cp`` / ``W`` geometry.
 ``distributed.distributed_decode`` runs this loop with one device a
 process, the tokens all-gathered and K2 replicated on every process.
+Counterpart of the JAX decode's stage probe, the stage probe: the
+``zling.*`` spans, tabled by ``benchmark/span_table.py``.
 """
 
 from __future__ import annotations
@@ -40,26 +42,21 @@ from ..utils import metrics
 from .mesh import Lanes, make_mesh
 
 
-def mesh_decode(data: bytes, devices=None, group_blocks: int | None = 1,
-                stage_probe: dict | None = None) -> bytes:
+def mesh_decode(data: bytes, devices=None, group_blocks: int | None = 1
+                ) -> bytes:
     """Decode a zling stream with its entropy decode sharded over
     ``devices`` (``mesh.make_mesh``), ``group_blocks`` blocks a group
     (None: one group); raises ValueError if it is corrupt.
 
-    stage_probe: optional dict that receives the wall times ``entropy_s``
-    (staging, table build and K1 on every device), ``gather_s`` (the
-    tokens to device 0) and ``resolve_s`` (K2), summed over the groups,
-    with every device synchronised after each stage -- a measurement mode
-    that serialises the host and the devices.  The same stages are the
-    spans ``zling.dec.entropy``, ``dec.gather`` and ``dec.resolve``
-    (``utils/metrics.stage``), then ``dec.collect``, whether probed or not.
+    Its stages are the spans ``zling.dec.entropy`` (staging, table build
+    and K1 on every device), ``dec.gather`` (the tokens to device 0) and
+    ``dec.resolve`` (K2), then ``dec.collect`` (``utils/metrics.stage``).
     """
-    return decode_lanes(data, Lanes(make_mesh(devices)), group_blocks,
-                        stage_probe)
+    return decode_lanes(data, Lanes(make_mesh(devices)), group_blocks)
 
 
-def decode_lanes(data: bytes, lanes: Lanes, group_blocks: int | None,
-                 stage_probe: dict | None = None) -> bytes:
+def decode_lanes(data: bytes, lanes: Lanes, group_blocks: int | None
+                 ) -> bytes:
     """``mesh_decode`` over ``lanes``' entries."""
     if group_blocks is not None and group_blocks < 1:
         raise ValueError("group_blocks must be >= 1")
@@ -68,8 +65,7 @@ def decode_lanes(data: bytes, lanes: Lanes, group_blocks: int | None,
     if s is None:
         return b""
     return collect(launch_lanes(s, lanes, group_blocks,
-                                mops.initial_table(lanes.resolve_device),
-                                stage_probe)[0])
+                                mops.initial_table(lanes.resolve_device))[0])
 
 
 def decode_spans(spans: Iterable[bytes], lanes: Lanes,
@@ -101,20 +97,15 @@ def decode_spans(spans: Iterable[bytes], lanes: Lanes,
 
 
 def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
-                 mtf0: torch.Tensor, stage_probe: dict | None = None):
+                 mtf0: torch.Tensor):
     """Stage and launch K1 on every entry's run and K2 on the resolve
     device for every group of ``s``, the MTF table carried from one
-    group's K2 to the next.  Without ``stage_probe`` the host never waits
-    for a device here.  Returns per group (K1 status, K2 status, bytes,
-    token counts), not yet fetched, and the exit MTF table."""
+    group's K2 to the next.  The host never waits for a device here.
+    Returns per group (K1 status, K2 status, bytes, token counts), not yet
+    fetched, and the exit MTF table."""
     n_blocks = len(s.block_base) - 1
     step = group_blocks or n_blocks
     D = lanes.count
-    cuda = {d for d in lanes.devices if d is not None and d.type == "cuda"}
-
-    def span(name: str, key: str):
-        return metrics.stage(name, stage_probe, key, cuda)
-
     mtf = mtf0
     pending = []
     for b0 in range(0, n_blocks, step):
@@ -124,7 +115,7 @@ def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
         cd = -(-(c1 - c0) // D)
         runs = [(min(c0 + i * cd, c1), min(c0 + (i + 1) * cd, c1))
                 for i in range(D)]
-        with span("dec.entropy", "entropy_s"):
+        with metrics.stage("dec.entropy"):
             k1out = {}
             for i in lanes.entries:
                 a, b = runs[i]
@@ -132,9 +123,9 @@ def launch_lanes(s: gd.Stream, lanes: Lanes, group_blocks: int | None,
                     k1out[i] = ek.decode_chunks(*ek.stage_chunks(
                         s.len1[a:b], s.len2[a:b], s.bodies[a:b],
                         s.rlens[a:b], lanes.devices[i]))
-        with span("dec.gather", "gather_s"):
+        with metrics.stage("dec.gather"):
             tokens, estatus = lanes.gather_tokens(k1out, runs, s.rlens)
-        with span("dec.resolve", "resolve_s"):
+        with metrics.stage("dec.resolve"):
             out, rstatus, mtf = rk.resolve_stream(
                 tokens, *s.resolve_args(c0, c1, lanes.resolve_device), mtf)
         pending.append((estatus, rstatus, out, s.rlens[c0:c1]))

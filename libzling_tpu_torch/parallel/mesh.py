@@ -50,11 +50,9 @@ does not change, and the next group starts from the host's state back on
 the device, where it must finish: a second failure in a row propagates.
 
 Each stage is a span (``utils/metrics.stage``, ``zling.enc.*``) on the
-profiler's timeline, which waits for nothing.  ``stage_probe`` (mesh.py:
-66-88, the JAX ``ZLT_STAGE_PROBE``): a dict passed to ``mesh_encode``
-receives the same stages' wall seconds under the JAX stage names, every
-device synchronised as each stage ends -- a measurement mode that
-serialises the host and the devices.
+profiler's timeline, which waits for nothing.  Counterpart of the JAX
+``ZLT_STAGE_PROBE`` (mesh.py:66-88), the stage probe: the ``zling.*``
+spans, tabled by ``benchmark/span_table.py``.
 
 Not ported: the ``tokenizer="xla"`` twin (its role on the CPU is K4's
 plain version, exact at every level) and the chunk-axis bucketing, which
@@ -184,27 +182,22 @@ class Lanes:
 def mesh_encode(data: bytes, level: int, devices=None,
                 block_size: int = BLOCK_SIZE_IN,
                 max_tokens: int = BLOCK_SIZE_ROLZ,
-                blocks_per_device: int = 1, elastic: bool = False,
-                stage_probe: dict | None = None) -> bytes:
+                blocks_per_device: int = 1, elastic: bool = False) -> bytes:
     """Encode with blocks sharded over ``devices`` (``make_mesh``);
     byte-identical to ``spec.encode(data, level, block_size=block_size,
     max_tokens=max_tokens)``.  ``elastic``: a group whose device path
-    fails is encoded again on the host (``encode_groups``).
-    ``stage_probe``: a dict that receives each stage's wall seconds
-    (``encode_groups``); the stream does not change."""
+    fails is encoded again on the host (``encode_groups``)."""
     if level not in LEVEL_PARAMS:
         raise ValueError("level must be 0..6")
     if not data:
         return b""
     return encode_lanes(bytes(data), level, Lanes(make_mesh(devices)),
-                        block_size, max_tokens, blocks_per_device, elastic,
-                        stage_probe)
+                        block_size, max_tokens, blocks_per_device, elastic)
 
 
 def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
                  max_tokens: int, blocks_per_device: int,
-                 elastic: bool = False,
-                 stage_probe: dict | None = None) -> bytes:
+                 elastic: bool = False) -> bytes:
     """The group loop of ``mesh_encode`` over ``lanes``' entries: the
     one-shot case of ``encode_groups``, ``data`` cut into groups of
     ``lanes.count * blocks_per_device`` blocks."""
@@ -216,7 +209,7 @@ def encode_lanes(data: bytes, level: int, lanes: Lanes, block_size: int,
 
     return b"".join(out for out, _ in encode_groups(
         groups(), level, lanes, block_size, max_tokens, blocks_per_device,
-        elastic=elastic, stage_probe=stage_probe))
+        elastic=elastic))
 
 
 def host_encode_group(data: bytes, level: int, state: bytes, entry: int,
@@ -250,7 +243,7 @@ class _GroupFailed(Exception):
 def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
                   block_size: int, max_tokens: int, blocks_per_device: int,
                   carry: tuple[torch.Tensor, int] | None = None,
-                  elastic: bool = False, stage_probe: dict | None = None
+                  elastic: bool = False
                   ) -> Iterator[tuple[bytes, tuple[torch.Tensor, int]]]:
     """Encode a stream that arrives a group of blocks at a time.
 
@@ -307,30 +300,6 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
 
     Each group framed counts ``enc.groups`` (one a ``zling.enc.frame``
     span).
-
-    ``stage_probe``: a dict to which each stage adds its wall seconds,
-    summed over the groups, with every CUDA device of this process's
-    entries synchronised as the stage ends (a measurement mode: the host
-    waits for the devices, so no look-ahead overlaps; without a dict
-    nothing waits and nothing is timed).  Every stage of the JAX package's
-    probe has its counterpart here, under its name (mesh.py:499-599):
-
-      ``encode_step``       a group's dispatch (``enc.dispatch``): its
-                            buffers staged, K4 and the K5 chain queued and
-                            run (a look-ahead dispatched again and a
-                            re-run after a fix, ``enc.launch``, too);
-      ``gather_freqs``      ``Part.finish``'s statistics fetched, the
-                            histograms computed and fetched;
-      ``length_tables``     the exact length tables on the host;
-      ``pack_step``         canonical codes and packing on the device;
-      ``gather_pack_meta``  the bit counts and word offsets fetched, then
-                            ``Lanes.gather`` / ``RankLanes.gather`` of the
-                            runs' views;
-      ``validate``          the schedule validation on the host;
-      ``gather_words``      the packed words fetched and gathered;
-      ``frame``             the container framing on the host.
-
-    A group encoded again on the host (``elastic``) adds to no stage.
     """
     if level not in LEVEL_PARAMS:
         raise ValueError("level must be 0..6")
@@ -340,11 +309,6 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     max_chunks = ge.max_chunks_of(block_size, max_tokens)
     G = lanes.count * bpd
     size = G * block_size
-    cuda = {d for d in lanes.devices if d is not None and d.type == "cuda"}
-
-    def span(name: str, key: str | None = None):
-        """A probed stage of the group loop (``metrics.stage``)."""
-        return metrics.stage(name, stage_probe, key, cuda)
 
     def guard(cur: dict, step):
         """Run ``step``, this process's part of group ``cur``.  With
@@ -402,12 +366,10 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
             done.synchronize()
             cur["snap"] = host
 
-    def launch(cur: dict, setup=None, probe=None) -> None:
+    def launch(cur: dict, setup=None) -> None:
         """Queue every local run's K4 (after ``setup``), then the K5 chain
         over the runs.  A K5 that fails hands its input state on, so that
-        the chain's collectives pair up, and raises at the chain's end.
-        ``probe``: the stage probe, where the pass is not part of a
-        dispatch."""
+        the chain's collectives pair up, and raises at the chain's end."""
         def tokenize():
             if setup is not None:
                 setup()
@@ -430,7 +392,7 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
             if err is not None:
                 raise err
 
-        with metrics.stage("enc.launch", probe, "encode_step", cuda):
+        with metrics.stage("enc.launch"):
             guard(cur, tokenize)
             guard(cur, chain)
 
@@ -459,7 +421,7 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
                                 data, runs[i], block_size, max_tokens,
                                 lanes.devices[i])
 
-        with span("enc.dispatch", "encode_step"):
+        with metrics.stage("enc.dispatch"):
             launch(cur, setup)
         return cur
 
@@ -470,23 +432,23 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
         while True:
             passes += 1
             done = checked(cur, lambda: {
-                i: p.finish(stage_probe, cuda)
+                i: p.finish()
                 for i, p in cur["parts"].items()})
-            with span("enc.gather_pack_meta"):
+            with metrics.stage("enc.gather_pack_meta"):
                 views = lanes.gather(done, cur["n"])
-            with span("enc.validate"):
+            with metrics.stage("enc.validate"):
                 expected, any_fix = checked(cur, lambda: ge.validate(
                     views, cur["sched"], cur["entry"], level))
             if not any_fix:
                 break
-            launch(cur, probe=stage_probe)
+            launch(cur)
         if passes > 1:
             metrics.registry.count("enc.schedule_mispredicts", passes - 1)
-        with span("enc.gather_words"):
+        with metrics.stage("enc.gather_words"):
             views = lanes.gather(checked(cur, lambda: {
                 i: p.view_with_words() for i, p in cur["parts"].items()}),
                 cur["n"])
-        with span("enc.frame"):
+        with metrics.stage("enc.frame"):
             out = checked(cur, lambda: ge.frame(views))
         metrics.registry.count("enc.groups")
         return out, expected, passes == 1

@@ -37,14 +37,27 @@ import sys
 
 import numpy as np
 
+from .. import _build
 from .. import group_decode as gd
 from ..native import engine
 from ..ops import entropy_kernel as ek
 from ..ops.relabel_kernel import TILE
 from ..tables import MATCH_MIN_LEN
-from .k3_pieces import corpus
 
-KiB = 1 << 10
+KiB, MiB = 1 << 10, 1 << 20
+
+
+def corpus() -> bytes:
+    """``chip_smoke.py``'s 32 MiB corpus: the Markov corpus with 1 MiB of
+    seeded random bytes in its middle."""
+    sys.path.insert(0, str(_build._REPO / "tools"))
+    from make_corpus import make_corpus
+
+    data = bytearray(make_corpus(32 * MiB))
+    rng = np.random.default_rng(20261016)
+    mid = len(data) // 2 - MiB // 2
+    data[mid:mid + MiB] = rng.integers(0, 256, MiB, dtype=np.uint8).tobytes()
+    return bytes(data)
 
 
 def units_of(tokens, rlens, new_block, encpos):

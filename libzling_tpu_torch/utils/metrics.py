@@ -16,8 +16,8 @@ framed by ``parallel/mesh.py::encode_groups``); the host pipeline adds
 ``stage`` marks one stage of the encode or decode path as a
 ``torch.profiler.record_function`` range named ``zling.<name>``: on the
 profiler's timeline, beside the CUDA kernels and copies the stage queued,
-and free of any wait for the device.  The stage probe (``stage_probe`` of
-``mesh_encode`` / ``mesh_decode``) times the same stages through it.
+and free of any wait for the device.  ``benchmark/span_table.py`` tables
+the device's idle time by span.
 
 ``trace`` is how an operator captures a Chrome trace of any API call, the
 port's spans and its kernels on one clock.
@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 from collections import defaultdict
 
 import torch
@@ -54,26 +53,10 @@ class Metrics:
 registry = Metrics()
 
 
-@contextlib.contextmanager
-def stage(name: str, probe: dict | None = None, key: str | None = None,
-          sync=()):
-    """The stage ``name`` as the profiler range ``zling.<name>``.
-
-    Without ``probe`` nothing else happens: no wait for a device and no
-    fetch from one.  With a ``probe`` dict the stage's wall seconds are
-    added to ``probe[key]`` (``key`` None: the last dotted part of
-    ``name``), each CUDA device of ``sync`` synchronised as the stage ends:
-    a measurement mode that serialises the host and the devices."""
-    with torch.profiler.record_function("zling." + name):
-        if probe is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        yield
-        for d in sync:
-            torch.cuda.synchronize(d)
-        key = key or name.rsplit(".", 1)[-1]
-        probe[key] = probe.get(key, 0.0) + time.perf_counter() - t0
+def stage(name: str):
+    """The stage ``name`` as the profiler range ``zling.<name>``: no wait
+    for a device and no fetch from one."""
+    return torch.profiler.record_function("zling." + name)
 
 
 @contextlib.contextmanager

@@ -27,9 +27,6 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 ARGS = ["--device", "cpu", "--host-mb", "0.25", "--device-mb", "0.25",
         "--literal-mb", "0.0625", "--repeats", "1"]
 SPREAD = {"n", "min", "median"}
-ENCODE_STAGES = {"encode_step", "gather_freqs", "length_tables",
-                 "pack_step", "gather_pack_meta", "validate",
-                 "gather_words", "frame"}
 
 
 @pytest.fixture(scope="module")
@@ -84,14 +81,6 @@ def test_the_last_line_holds_every_section_and_key(lines):
     assert set(api["kernel_ms"]) == {"tokenize", "relabel"}
     assert api["stream_bytes"] == dec["stream_bytes"] and api["mbps"] > 0
     assert c["entropy"]["tokens_equal_engine"] and c["entropy"]["mtoks"] > 0
-    lanes = c["lanes"]
-    assert set(lanes["encode_stage_seconds"]) == ENCODE_STAGES
-    assert set(lanes["decode_stage_seconds"]) == {"entropy_s", "gather_s",
-                                                  "resolve_s"}
-    assert 0 < lanes["encode_serial_fraction"] < 1
-    assert 0 < lanes["encode_serial_fraction_compute"] \
-        < lanes["encode_serial_fraction"]
-    assert 0 < lanes["projected_scaling_8chip_this_host"] <= 1
     assert d["counters_on_enc_mbps_e0"] > 0
     assert d["counters"]["native"]["bucket_updates"] > 0
     assert "registry" in d["counters"] and d["skipped"] == {}

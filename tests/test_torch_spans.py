@@ -31,6 +31,11 @@ FUSED_SPANS = {"zling.dec." + s for s in (
     "parse", "stage", "k3", "status", "fetch")}
 SPLIT_SPANS = {"zling.dec." + s for s in (
     "parse", "entropy", "gather", "resolve", "collect")}
+# the spans of the eight stages the JAX package's stage probe times (its
+# encode_step: a group's dispatch and every K4 + K5 pass)
+PROBE_SPANS = {"zling.enc." + s for s in (
+    "dispatch", "launch", "gather_freqs", "length_tables", "pack_step",
+    "gather_pack_meta", "validate", "gather_words", "frame")}
 
 
 def _text(n: int = 9000) -> bytes:
@@ -127,6 +132,27 @@ def test_k4_passes_are_frames_plus_the_counted_reruns(name, redispatch,
     assert n.count("zling.enc.launch") == n.count("zling.enc.frame") + \
         counters.get("enc.schedule_mispredicts", 0) + \
         counters.get("enc.pipeline_redispatch", 0)
+
+
+@pytest.mark.parametrize("name,D", [("ends in noise", 2), ("text", 1),
+                                    ("text", 3)])
+def test_the_lanes_spans_hold_every_probed_stage(name, D, tmp_path):
+    # mesh_encode over D CPU lanes keeps the bytes and opens a span for
+    # every stage; "ends in noise": a mispredict re-runs the first group,
+    # a launch outside any dispatch
+    data = _ends_in_noise() if name == "ends in noise" else _text()
+    metrics.registry.reset()
+    got, spans = traced(lambda: mesh_encode(data, 2, ["cpu"] * D, **GEOM),
+                        tmp_path)
+    assert got == spec.encode(data, 2, **GEOM)
+    assert PROBE_SPANS <= set(names(spans))
+    dispatches = [s for s in spans if s[0] == "zling.enc.dispatch"]
+    reruns = [s for s in spans if s[0] == "zling.enc.launch"
+              and not any(inside(s, d) for d in dispatches)]
+    mispredicts = metrics.registry.snapshot()["counters"].get(
+        "enc.schedule_mispredicts", 0)
+    assert len(reruns) == mispredicts
+    assert (mispredicts > 0) == (name == "ends in noise")
 
 
 def test_a_failover_is_a_span(tmp_path):

@@ -65,10 +65,7 @@ def test_decode_groups_matches_mesh_decode(gb):
     want = decode_mesh.mesh_decode(stream, mesh=_mesh(), group_blocks=gb,
                                    **MESH_SMALL)
     assert want == _data()
-    probe = {}
-    assert zt.decode_groups(stream, "cpu", group_blocks=gb,
-                            stage_probe=probe) == want
-    assert set(probe) == {"entropy_s", "gather_s", "resolve_s"}
+    assert zt.decode_groups(stream, "cpu", group_blocks=gb) == want
 
 
 def test_leading_empty_block():
