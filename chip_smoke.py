@@ -16,15 +16,20 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      is a match symbol -- then inputs aimed at K4's and K3's designs
      (``design_cases``: a run of one byte, e6 on repetitive text, matches of
      259, copies overlapping by 1..20 bytes, 40-token chunks) through K4,
-     K3, K1 and K2, and K3 on ``crafted_streams`` (a head-byte match symbol,
+     K3, K1 and K2, K3 on ``crafted_streams`` (a head-byte match symbol,
      a match without its index, corrupt tokens thousands of tokens into a
-     chunk), with each one's time beside the plain one's; then inputs aimed
-     at K2's and K5's designs: K2 on ``resolve_cases`` (matches W - 1, W
-     and W + 1 bytes back, W its output window; chunk and block edges;
-     overlapping copies; chunks about its token ring's length), each also
-     with a corrupt chunk, and K5 on ``relabel_cases`` (a context across a
-     tile edge, a tile of literals only, one without any, short ranges
-     with gaps), each from the initial and from a carried MTF state; then
+     chunk) and on ``far_match_stream`` (sources within and beyond its
+     window: the match counts of its status rows), and the ``HEAD_MATCH``
+     table through the fused and the split path, with each one's time
+     beside the plain one's; then inputs aimed at K2's, K3's and K5's
+     designs: K2 and K3 on ``resolve_cases`` (matches W - 1, W and W + 1
+     bytes back, W their output window; chunk and block edges; overlapping
+     copies; chunks about K2's token ring's length) and K3 on
+     ``fused_cases`` (chunks about a batch and its entry ring, 259-byte
+     matches at batch ends), each also with a corrupt chunk, and K5 on
+     ``relabel_cases`` (a context across a tile edge, a tile of literals
+     only, one without any, short ranges with gaps), K2 and K5 each from
+     the initial and from a carried MTF state; then
      K1 on ``k1_cases`` (chunks over many of its segments, near-fixed-
      length codes, one-symbol tables, 1-3 tokens, a match symbol last;
      one chunk cut and flipped in its first, a middle and its last segment
@@ -35,7 +40,9 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      native engine's canonical stream, and decode back through the fused
      path (K3), the split path (``decode(fused=False)``: K1 -> K2) and the
      group path (``decode_groups``, one block a group, the MTF table
-     carried across the group edge); the same at e4 on 20 MiB (one full
+     carried across the group edge), the fused path with the matches K3
+     counted and the share it read in its output window (``dec.matches``,
+     ``dec.window_matches``); the same at e4 on 20 MiB (one full
      16 MiB block and a partial one).  Every count is set to 0 just before
      each path and read just after it; each kernel of the path must have
      launched.  Then each kernel again on the inputs the e0 run gave it
@@ -43,7 +50,8 @@ Phases (each prints one line with its seconds; any failure exits non-zero):
      plain version (exact equality; K4's plain version on the block with
      more units, the walk that sets K4's time), timed, with the bytes it
      must move;
-     K4 also alone at the e4 shapes (timed); K1 also at the e4 shapes
+     K4, K3 and K2 also alone at the e4 shapes (timed, K3 with its match
+     counts); K1 also at the e4 shapes
      (against its plain version) and on the e0 stream's near-fixed-length
      chunks and as many text chunks, each set alone (timed), with the
      device time of each of its four launches (torch.profiler);
@@ -299,6 +307,7 @@ class TokenWriter:
         self.r = rk.Resolver(self.out, mops.initial_table("cpu"),
                              mops.mtf_next("cpu").tolist())
         self.chunks, self.base, self.block, self.toks = [], 0, -1, None
+        self.units = 0      # units of the open chunk: K3's entries
 
     def chunk(self, new_block: bool = False):
         """Close the open chunk and open the next (a new block's two raw
@@ -309,10 +318,11 @@ class TokenWriter:
             self.base += self.r.opos if self.block >= 0 else 0
             self.block += 1
         self.r.start_chunk(self.base, int(new_block), 1 << 30)
-        self.toks = []
+        self.toks, self.units = [], 0
         if new_block:
             for b in self.rng.integers(0, 256, 2):
                 self.toks.append(int(b))
+                self.units += 1
                 assert self.r.head_byte(int(b))
 
     def literals(self, n: int):
@@ -324,6 +334,7 @@ class TokenWriter:
         ctx = self.r.l1
         rank = self.r.mtf.index(b, ctx * 256, ctx * 256 + 256) - ctx * 256
         self.toks.append(rank)
+        self.units += 1
         assert self.r.simple(rank)
 
     def match(self, d: int, mlen: int):
@@ -338,6 +349,7 @@ class TokenWriter:
         row = r.ring[ctx * RING:(ctx + 1) * RING]
         midx = ((r.head[ctx] + 1) - row.index(src)) & (RING - 1)
         self.toks += [258 + mlen - 4, midx]
+        self.units += 1
         assert r.match(258 + mlen - 4, midx)
 
     def cases(self):
@@ -411,6 +423,81 @@ def resolve_cases() -> dict:
         "block edges": block_edge(),
         "chunks about the token ring's length": ring_sized(),
     }
+
+
+def fused_cases() -> dict:
+    """Token streams aimed at K3's entry ring and batches: name -> (chunks,
+    block sizes), as ``resolve_cases``.  Chunks of a batch of units less
+    one, of one and of one more (the chunk's end entry is then the last
+    entry of the batch's piece, the first of the next, its second), of one
+    unit, of two batches, and about the entry ring's length; then 259-byte
+    matches at the last step of a batch and at the first of the next, their
+    sources just behind them and W - 1, W, W + 1 and W + 300 bytes back (W:
+    K3's output window), so that their bytes cross a flush of the window."""
+    from libzling_tpu_torch.ops.decode_fused import ENTRY_RING, PIECE, WINDOW
+
+    def sized():
+        w = TokenWriter(60000, seed=35)
+        w.chunk(new_block=True)
+        for n in (PIECE - 1, PIECE, PIECE + 1, 1, 2 * PIECE, ENTRY_RING - 1,
+                  ENTRY_RING, ENTRY_RING + 1):
+            if n > 8:
+                w.literals(n - 2 - w.units)
+                w.match(9, 12)
+            else:
+                w.literals(n - w.units)
+            assert w.units == n
+            w.chunk()
+        return w.cases()
+
+    def batch_ends():
+        w = TokenWriter(WINDOW + 9000, seed=36)
+        w.chunk(new_block=True)
+        w.literals(WINDOW + 2000)
+        start = 0
+        for k, d in enumerate((40, 100, WINDOW - 1, WINDOW, WINDOW + 1,
+                               WINDOW + 300, 40, None)):
+            # the match at a batch's last step (k even) or its first (odd);
+            # the last one's source is the start of the match before it
+            at = (w.units // PIECE + 2) * PIECE - 1 + k % 2
+            w.literals(at - 1 - w.units)
+            w.match(d or w.r.opos + 1 - start, 259)
+            assert w.units == at + 1
+            start = w.r.opos - 259
+        return w.cases()
+
+    return {
+        "chunks about a batch and the entry ring": sized(),
+        "long matches at batch ends": batch_ends(),
+    }
+
+
+def far_match_stream(level: int) -> tuple[bytes, bytes]:
+    """(data, stream): ~0.5 MB of text around a segment of 150,000 random
+    letters written three times, coded at ``level`` by the port's native
+    engine in blocks of 256 KiB.  Matches in the first block's second copy
+    of the segment take their sources 210,000 bytes back, beyond K3's
+    output window; the text's take theirs within it."""
+    from libzling_tpu_torch.native import engine
+    from libzling_tpu_torch.ops import mtf as mops
+
+    rng = np.random.default_rng(12)
+    seg = rng.integers(97, 123, 150000, dtype=np.uint8).tobytes()
+    words = [b"alpha ", b"beta ", b"gamma ", b"delta ", b"epsilon "]
+    text = b"".join(words[i] for i in rng.integers(0, len(words), 20000))
+    data = seg + text[:60000] + seg[:40000] + text + seg
+    state = mops.state_to_bytes(mops.initial_state("cpu"))
+    return data, engine.encode_from(data, level, state, level, 1 << 18)[0]
+
+
+# A match symbol as one of a block's two raw head bytes: (tokens, encpos,
+# the split decoders' bytes, the fused decoders' bytes).  The split
+# decoders take its index as the next token and agree with spec.decode; the
+# fused decoders never read the index bits.
+HEAD_MATCH = {
+    "first_byte": ([258, 5, 65, 66], 4, b"\x02\x056L", b"\x02ALL"),
+    "second_byte": ([65, 258, 7, 66, 67], 5, b"A\x02rL7", b"A\x02LL7"),
+}
 
 
 def resolve_args(chunks, sizes, pad: int = 1):
@@ -607,8 +694,9 @@ def tokenize_args(data: bytes, level: int, geom: dict, mixed: bool = False):
 
 def check_designs(dev, z, row):
     """Phase 3b: K4, K3, K1 and K2 against their plain versions on
-    ``design_cases`` and K3 on ``crafted_streams`` (bytes and statuses,
-    corrupt or not)."""
+    ``design_cases`` and K3 on ``crafted_streams`` and ``far_match_stream``
+    (bytes and statuses, corrupt or not); the ``HEAD_MATCH`` table through
+    the fused and the split path."""
     from libzling_tpu_torch import device as zdev
     from libzling_tpu_torch import group_decode as gd
     from libzling_tpu_torch.ops import decode_fused as fk
@@ -638,17 +726,26 @@ def check_designs(dev, z, row):
                   lambda: fk.fused_decode_plain(*dargs, out_size=size))
             st = gd.parse(stream)
             assert check_split(dev, st, [(0, len(st.rlens))], row) == data
-    for stream in crafted_streams().values():
+    far = [far_match_stream(level)[1] for level in (0, 4)]
+    for stream in [*crafted_streams().values(), *far]:
         dargs, size, _ = zdev.decode_args(stream, "cpu")
         dargs_d = on(dargs, dev)
         timed("decode_fused", lambda: fk.fused_decode(*dargs_d, out_size=size),
               lambda: fk.fused_decode_plain(*dargs, out_size=size))
+    for toks, encpos, split, fused in HEAD_MATCH.values():
+        stream = chunk_stream(toks, encpos)
+        assert z.decode(stream, device=dev) == fused
+        assert z.decode(stream, device=dev, fused=False) == split
 
 
 def check_edges(dev, row):
     """Phase 3c: K2 on ``resolve_cases`` (each also with a corrupt chunk)
     and K5 on ``relabel_cases`` against their plain versions, each from the
-    initial MTF state and again from the first call's exit state."""
+    initial MTF state and again from the first call's exit state; K3 on
+    ``resolve_cases`` and ``fused_cases``, each also with a corrupt
+    chunk."""
+    from libzling_tpu_torch import device as zdev
+    from libzling_tpu_torch.ops import decode_fused as fk
     from libzling_tpu_torch.ops import mtf as mops
     from libzling_tpu_torch.ops import relabel_kernel as rlk
     from libzling_tpu_torch.ops import resolve_kernel as rk
@@ -676,6 +773,19 @@ def check_edges(dev, row):
                           mops.initial_table("cpu"))
             # the tokens were written for the initial table
             assert bool(first[1][:, 2].any()) == (cs is not chunks)
+    for chunks, sizes in [*resolve_cases().values(),
+                          *fused_cases().values()]:
+        for cs in (chunks, corrupt_chunk(chunks)):
+            dargs, size, _ = zdev.decode_args(cases_stream(cs), "cpu")
+            dargs_d = on(dargs, dev)
+            got = fk.fused_decode(*dargs_d, out_size=size)
+            t = time.perf_counter()
+            want = fk.fused_decode_plain(*dargs, out_size=size)
+            ms = (time.perf_counter() - t) * 1e3
+            row("decode_fused", max_abs_err(zip(got, want)),
+                cuda_ms(lambda: fk.fused_decode(*dargs_d, out_size=size), 1),
+                ms)
+            assert bool(want[1][:, 2].any()) == (cs is not chunks)
     nxt = mops.mtf_next("cpu")
     for rargs in relabel_cases().values():
         rargs_d = on(rargs, dev)
@@ -913,6 +1023,8 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
         lambda: fk.fused_decode_plain(*dargs, out_size=size),
         lambda w: nbytes(*dargs, *w))
     assert out.numpy().tobytes() == data and not status[:, 2].any()
+    rows["decode_fused"].update(matches=int(status[:, 4].sum()),
+                                window_matches=int(status[:, 5].sum()))
 
     st = gd.parse(stream)
     k1, k2 = st.stage_split(0, len(st.rlens), "cpu")
@@ -967,6 +1079,27 @@ def check_full_size(data: bytes, stream: bytes, stream4: bytes, dev):
         lambda: rk.resolve_stream_plain(tokens, *k2, table),
         lambda w: nbytes(tokens, *k2, table, *w))
     assert out.numpy().tobytes() == data and not status[:, 2].any()
+    # K3 and K2 at the e4 main path's shapes, each launch's bytes held to
+    # the input (the plain versions are held to them at e0)
+    x4 = data[:20 * MiB]
+    dargs4, size4, _ = zdev.decode_args(stream4, dev)
+    got = []
+    ms = cuda_ms(lambda: got.append(fk.fused_decode(*dargs4, out_size=size4)),
+                 1, False)
+    assert got[0][0].cpu().numpy().tobytes() == x4
+    status4 = got[0][1].cpu()
+    assert not status4[:, 2].any()
+    rows["decode_fused"]["e4"] = dict(
+        ms=ms, tokens=int(status4[:, 1].sum()),
+        matches=int(status4[:, 4].sum()),
+        window_matches=int(status4[:, 5].sum()))
+    tok4 = ek.decode_chunks(*k14_d)[0]
+    _, k24 = st4.stage_split(0, len(st4.rlens), dev)
+    got = []
+    ms = cuda_ms(lambda: got.append(rk.resolve_stream(tok4, *k24, tabd)),
+                 1, False)
+    assert got[0][0].cpu().numpy().tobytes() == x4
+    rows["resolve"]["e4"] = dict(ms=ms)
     for r in rows.values():
         assert r["max_abs_err"] == 0, rows
     return rows, dict(units=n_units, tokens=int(rlens.sum()),
@@ -982,6 +1115,24 @@ def chunk_stream(tokens, encpos: int, rlen: int | None = None) -> bytes:
     """One block of one chunk holding ``tokens`` (crafted test streams),
     entropy-coded with the port's own Huffman stage; its header declares
     ``rlen`` tokens (default: all of them)."""
+    return chunk_bytes(tokens, encpos, rlen) + b"\x00"
+
+
+def cases_stream(chunks) -> bytes:
+    """The stream of (block, tokens, encpos) chunks (``resolve_cases``,
+    ``fused_cases``), each chunk coded as ``chunk_stream`` codes one."""
+    out = bytearray()
+    for k, (b, toks, encpos) in enumerate(chunks):
+        out += chunk_bytes(toks, encpos)
+        if k + 1 == len(chunks) or chunks[k + 1][0] != b:
+            out += b"\x00"
+    return bytes(out)
+
+
+def chunk_bytes(tokens, encpos: int, rlen: int | None = None) -> bytes:
+    """A chunk's frame and its payload, ``tokens`` coded with the port's
+    own Huffman stage; its header declares ``rlen`` tokens (default: all
+    of them)."""
     from libzling_tpu_torch.tables import HUFFMAN_MAX_LEN_1, HUFFMAN_MAX_LEN_2
     from libzling_tpu_torch.ops import huffman as hops
 
@@ -1004,8 +1155,7 @@ def chunk_stream(tokens, encpos: int, rlen: int | None = None) -> bytes:
                                       l2[0])
     return (b"\x01" + encpos.to_bytes(4, "big")
             + (len(tokens) if rlen is None else rlen).to_bytes(4, "big")
-            + len(payload).to_bytes(4, "big")
-            + payload + b"\x00")
+            + len(payload).to_bytes(4, "big") + payload)
 
 
 PROBE_N = 65536      # steps of the kernel == plain checks of phase 6
@@ -1941,6 +2091,7 @@ def main() -> int:
 
     # ---- 4. the main path at full size
     from libzling_tpu_torch.native import engine
+    from libzling_tpu_torch.utils import metrics
 
     data = corpus(32 * MiB)
     t0 = phase("corpus", t0, f"{len(data)} bytes")
@@ -1984,9 +2135,16 @@ def main() -> int:
         times = dict(encode=dict(s=enc_s, MBps=len(x) / enc_s / 1e6,
                                  launches=enc_n))
         for name, (fn, want) in paths.items():
+            before = metrics.registry.snapshot()["counters"]
             back, sec, n = drive(fn, want)
             assert back == x, f"e{level} {name} round trip differs"
             times[name] = dict(s=sec, MBps=len(x) / sec / 1e6, launches=n)
+            if name == "fused":   # K3's matches; those it read in its window
+                after = metrics.registry.snapshot()["counters"]
+                m, w = (after.get(k, 0) - before.get(k, 0)
+                        for k in ("dec.matches", "dec.window_matches"))
+                times[name].update(matches=m, window_matches=w,
+                                   window_share=w / m)
         main_times[level] = times
         t0 = phase(f"main e{level}", t0, json.dumps(dict(
             bytes=len(x), stream=len(stream), ratio=len(stream) / len(x),

@@ -273,7 +273,7 @@ dma_kernel(int ndma, int nwords, int toward_global,
 
 // ---- PS20: K2's match step in layers ---------------------------------------
 // Layer bits: 1 ring (head bump, source slot load, insert; the ring in
-// global memory as Resolver has it), 2 MTF swap + word-MRU (shared), 4 the
+// global memory as ResolverT has it), 2 MTF swap + word-MRU (shared), 4 the
 // source-side tail (three byte loads that feed the next context), 8 the
 // copy (copy_match, 6 bytes from 32 back).  init: lut1 [8][512] | lut2
 // [8][128]; the rest is set up as build_match_kernel's init() does, but

@@ -22,7 +22,7 @@
 //   * the resolver (warp 0): its lanes clear the ring of token-start
 //     positions ([256][4096] i32, global memory) at each new block and the
 //     word-MRU at each chunk; lane 0 runs the resolve steps it shares with
-//     K3 (rolz.cuh) with the output window on: every byte goes to a window
+//     K3 (rolz.cuh) with the output window: every byte goes to a window
 //     of the block's latest 128 KiB in shared memory, and a match whose
 //     source is in the window reads it there.  It walks a chunk in batches
 //     of kBatch tokens.  Before a batch it releases the pieces behind it,
@@ -64,47 +64,14 @@ constexpr int kTok = kPiece * kPieces;
 constexpr int kBatch = 256;        // tokens between the resolver's waits
 constexpr int kSmem = 65536 + kWin + Res::kMirror + 4 * (kTok + kMru + 256);
 
-// The window to the block's output: positions [0, done) are issued, a
-// group of bulk copies a batch (the block's first bytes up to a 16-byte
-// aligned address, and its last ones, byte by byte), and after each group
-// all but the newest are complete.  A batch's steps take at most kBatch + 1 tokens, so
-// write at most kBatchBytes; so at most two batches' bytes (plus 30 of
-// alignment) are not yet in the output, a source more than kWin back is in
-// the output when read, and no slot is rewritten before its group has
+// A batch's steps take at most kBatch + 1 tokens, so write at most
+// kBatchBytes between two flushes (`Flusher`): a source more than kWin back
+// is in the output when read, and no slot is rewritten before its group has
 // read it.
 constexpr int kBatchBytes = (kBatch + 2) / 2 * kMatchMax;
 static_assert(2 * (kBatchBytes + 15) + kMatchMax < kWin);
 static_assert(kBatch + 3 <= kPiece);   // a batch reads at most two pieces
-
-struct Flusher {
-  uint8_t* o;
-  const uint8_t* win;
-  int wofs, done;
-
-  __device__ __forceinline__ uint8_t at(int p) const {
-    return win[(p + wofs) & (kWin - 1)];
-  }
-
-  // Issue [done, q) (q rounded down to 16 bytes unless last); last: all
-  // of it, every group complete.
-  __device__ __forceinline__ void to(int q, bool last) {
-    for (; done < q && ((done + wofs) & 15); ++done) o[done] = at(done);
-    for (const int end = done + ((q - done) & ~15); done < end;) {
-      const int slot = (done + wofs) & (kWin - 1);
-      const int n = min(end - done, kWin - slot);
-      bulk_store(o + done, win + slot, n);
-      done += n;
-    }
-    if (last) {
-      for (; done < q; ++done) o[done] = at(done);
-      bulk_commit();
-      bulk_wait<0>();
-    } else {
-      bulk_commit();
-      bulk_wait<1>();
-    }
-  }
-};
+using Flush = Flusher<kWin>;
 
 // The pieces of a chunk's token window.
 __device__ __forceinline__ int pieces_of(const Window& w) {
@@ -178,7 +145,7 @@ resolve_kernel(const int* __restrict__ tokens,
   int taken = 0;       // pieces waited for (lane 0)
   int opos_carry = 0;
   bool stop = false;
-  Flusher fl{out, s_win, 0, 0};
+  Flush fl{out, s_win, 0, 0};
   for (int c = 0; c < n_chunks; ++c) {
     if (stop) {  // an earlier chunk was bad: the rest is not decoded
       if (lane == 0) {
@@ -210,7 +177,7 @@ resolve_kernel(const int* __restrict__ tokens,
       const int opos0 = new_block ? 0 : opos_carry;
       uint8_t* o = out + out_base[c];
       if (opos0 == 0)
-        fl = Flusher{o, s_win, static_cast<int>(reinterpret_cast<uintptr_t>(o) & 15), 0};
+        fl = Flush{o, s_win, static_cast<int>(reinterpret_cast<uintptr_t>(o) & 15), 0};
       Res r{o, ring, s_head, s_mru, s_mtf, s_nxt, opos0,
             opos0 >= 1 ? fl.at(opos0 - 1) : 0,
             opos0 >= 2 ? fl.at(opos0 - 2) : 0, encposs[c]};

@@ -13,18 +13,20 @@
 // copy, the MTF swap, the word-MRU update.  The caller passes nt < 0 when
 // the next token is unknown or is no match.
 //
-// The output window (kWinLog > 0: K2): every byte of the block's output
-// goes to a circular window of 1 << kWinLog bytes in shared memory, at slot
-// (position + wofs) mod the window's size (the first kMirror slots also
-// past its end), and to nowhere else: the caller moves the window to the
-// output by bulk copies, so that a source further back than the window is
-// in the output by the time it is read.  A match whose source lies at most
+// The output window: every byte of the block's output goes to a circular
+// window of 1 << kWinLog bytes in shared memory, at slot (position + wofs)
+// mod the window's size (the first kMirror slots also past its end), and
+// to nowhere else: the caller moves the window to the output by bulk
+// copies (`Flusher`), so that a source further back than the window is in
+// the output by the time it is read.  A match whose source lies at most
 // that far back (d = opos - src <= size) reads its bytes in the window.
 // The window needs no reset: positions count from the block's start and a
 // source lies in the block before opos, so d <= size means that its slot
-// still holds that byte.  K3 runs without it (`Resolver`).
+// still holds that byte.  Each step counts the matches it resolved and
+// those whose source it read in the window (`matches`, `near`).
 #pragma once
 
+#include "async.cuh"
 #include "common.cuh"
 
 namespace zlt {
@@ -66,7 +68,7 @@ __device__ __forceinline__ void copy_match(uint8_t* o, int opos, int src,
 
 template <int kWinLog>
 struct ResolverT {
-  static constexpr int kWin = kWinLog > 0 ? 1 << kWinLog : 0;
+  static constexpr int kWin = 1 << kWinLog;
   // the window's first slots again past its end, so that a match's bytes
   // (at most 259) lie at consecutive addresses wherever it starts
   static constexpr int kMirror = 272;
@@ -82,17 +84,14 @@ struct ResolverT {
   int pend_src = 0;    // and the position it holds
   uint8_t* win = nullptr;  // [kWin + kMirror] the latest output bytes
   int wofs = 0;            // position p's slot: (p + wofs) mod kWin
+  int matches = 0;         // matches resolved
+  int near = 0;            // ... of them with their source in the window
 
-  // Output byte p := b: its window slot and that slot's mirror, or the
-  // output without the window.
+  // Output byte p := b: its window slot and that slot's mirror.
   __device__ __forceinline__ void put(int p, int b) {
-    if constexpr (kWin == 0) {
-      o[p] = static_cast<uint8_t>(b);
-    } else {
-      const int s = (p + wofs) & (kWin - 1);
-      win[s] = static_cast<uint8_t>(b);
-      if (s < kMirror) win[s + kWin] = static_cast<uint8_t>(b);
-    }
+    const int s = (p + wofs) & (kWin - 1);
+    win[s] = static_cast<uint8_t>(b);
+    if (s < kMirror) win[s + kWin] = static_cast<uint8_t>(b);
   }
 
   // A match's mlen bytes from sp[] to position at; v[] holds the first
@@ -101,15 +100,12 @@ struct ResolverT {
   __device__ __forceinline__ void store(int at, const uint8_t* sp, int d,
                                         int mlen, int first,
                                         const uint8_t* v) {
-    uint8_t* dp = o + at;
-    if constexpr (kWin > 0) {
-      const int s = (at + wofs) & (kWin - 1);
-      if (s < kMirror || s + mlen > kWin) {
-        for (int k = 0; k < mlen; ++k) put(at + k, sp[k]);
-        return;
-      }
-      dp = win + s;
+    const int s = (at + wofs) & (kWin - 1);
+    if (s < kMirror || s + mlen > kWin) {
+      for (int k = 0; k < mlen; ++k) put(at + k, sp[k]);
+      return;
     }
+    uint8_t* dp = win + s;
     if (d >= first) {
 #pragma unroll
       for (int k = 0; k < 16; ++k)
@@ -167,8 +163,7 @@ struct ResolverT {
     // source byte k: sp[k], from the window when it is near (its mirror
     // keeps sp[0..258] in it), else from the output
     const uint8_t* sp = o + src;
-    if constexpr (kWin > 0)
-      if (d <= kWin) sp = win + ((src + wofs) & (kWin - 1));
+    if (d <= kWin) sp = win + ((src + wofs) & (kWin - 1));
     const int k3 = mlen - 3, k2 = mlen - 2, k1 = mlen - 1;
     const int cu = sp[k3 < d ? k3 : k3 % d];
     const int b2 = sp[k2 < d ? k2 : k2 % d];
@@ -192,6 +187,8 @@ struct ResolverT {
       mru[cu * 2 + 1] = m0;
       mru[cu * 2] = wu;
     }
+    ++matches;          // off the chain: after every load and store
+    near += d <= kWin;
     return true;
   }
 
@@ -238,6 +235,42 @@ struct ResolverT {
   }
 };
 
-using Resolver = ResolverT<0>;   // K3: no output window
+// The window to the block's output: positions [0, done) are issued, a
+// group of bulk copies at each call of `to` (the block's first bytes up to
+// a 16-byte aligned address, and its last ones, byte by byte), and after
+// each group all but the newest are complete.  So where the caller writes
+// at most B bytes between two calls, at most 2 (B + 15) bytes are not yet
+// in the output, and a source more than that plus a match back is in the
+// output when it is read; each kernel asserts its B against kWin.
+template <int kWin>
+struct Flusher {
+  uint8_t* o;
+  const uint8_t* win;
+  int wofs, done;
+
+  __device__ __forceinline__ uint8_t at(int p) const {
+    return win[(p + wofs) & (kWin - 1)];
+  }
+
+  // Issue [done, q) (q rounded down to 16 bytes unless last); last: all
+  // of it, every group complete.
+  __device__ __forceinline__ void to(int q, bool last) {
+    for (; done < q && ((done + wofs) & 15); ++done) o[done] = at(done);
+    for (const int end = done + ((q - done) & ~15); done < end;) {
+      const int slot = (done + wofs) & (kWin - 1);
+      const int n = min(end - done, kWin - slot);
+      bulk_store(o + done, win + slot, n);
+      done += n;
+    }
+    if (last) {
+      for (; done < q; ++done) o[done] = at(done);
+      bulk_commit();
+      bulk_wait<0>();
+    } else {
+      bulk_commit();
+      bulk_wait<1>();
+    }
+  }
+};
 
 }  // namespace zlt

@@ -17,8 +17,10 @@ Counterpart of ``libzling_tpu/device.py`` (``encode``, ``decode``).
       bytes at its offset in one u8 tensor, or (``fused=False``) the split
       pair: K1 decodes every chunk to tokens, one CTA per chunk, and K2
       resolves them (``group_decode.py`` with one group); the per-chunk
-      statuses turn into ``ValueError`` on a corrupt stream.  K3 is one
-      serial walk a stream, so decode does not spread over cards.
+      statuses turn into ``ValueError`` on a corrupt stream, and K3's add
+      its matches and those it read in its output window to the counters
+      ``dec.matches`` and ``dec.window_matches``.  K3 is one serial walk a
+      stream, so decode does not spread over cards.
 
 Each call is the span ``zling.encode`` or ``zling.decode``
 (``utils/metrics.stage``), its stages' spans nested in it.
@@ -141,6 +143,8 @@ def decode(data: bytes, device="cuda", fused: bool = True) -> bytes:
         out, status = fk.fused_decode(*args, out_size=size)
         with metrics.stage("dec.status"):
             st = status.cpu().numpy()
+            metrics.registry.count("dec.matches", int(st[:, 4].sum()))
+            metrics.registry.count("dec.window_matches", int(st[:, 5].sum()))
             if st[:, 2].any() or (st[:, 1] != rlens).any():
                 raise ValueError("zling: corrupt stream")
         with metrics.stage("dec.fetch"):

@@ -16,26 +16,32 @@ Source note (``csrc/decode_fused.cu``, with K1's reader
     previous token left: an L2 load (~300 cycles) on the chain, then its
     source bytes;
   * design: one CTA of two warps for the stream, no token array in global
-    memory.  A producer warp loads each chunk's tables into shared memory
-    and its lane 0 runs K1's reader ahead of the resolver, with the fused
-    decoder's reading rules (no index bits for a block's two raw head
-    bytes, a match without room for its index, a read past ``n_words``
-    and an invalid code end the chunk), into a ring of 8,192 entries in
-    shared memory.  The resolver warp clears the ring of token-start
-    positions ([256, 4096], 4 MB, global memory) at each new block; its
-    lane 0 runs the resolve steps one entry ahead: a match's last three
-    bytes (the next context) are read from the copy's source, and the next
-    match's ring slot is loaded as soon as that context is known, before
-    the copy's stores and the MTF and word-MRU updates.  The MTF table (u8
-    64 KB) and the word-MRU live in shared memory.  Output bytes go straight
-    into a u8 tensor at the block's offset.
+    memory, in K2's form (``resolve_kernel.py``).  A producer warp loads
+    each chunk's tables into shared memory and its lane 0 runs K1's reader
+    ahead of the resolver, with the fused decoder's reading rules (no
+    index bits for a block's two raw head bytes, a match without room for
+    its index, a read past ``n_words`` and an invalid code end the chunk),
+    into a ring of ``ENTRY_RING`` entries in shared memory, ``PIECE`` a
+    piece, one entry a unit; mbarriers hand the pieces over and back, so a
+    producer that is ahead sleeps.  The resolver warp clears the ring of
+    token-start positions ([256, 4096], 4 MB, global memory) at each new
+    block; its lane 0 runs K2's resolve steps one entry ahead (a match's
+    last three bytes, the next context, are read from the copy's source,
+    and the next match's ring slot is loaded as soon as that context is
+    known) and walks a chunk a piece at a time: it waits for pieces and
+    moves its output window (``WINDOW`` bytes of shared memory, the
+    block's latest bytes, where a near match reads its source) to the u8
+    output by bulk copies only between pieces.  The MTF table (u8 64 KB),
+    the window, the entry ring and the word-MRU live in shared memory
+    (231,192 B of the card's 232,448).
 
-Status per chunk is (opos, tokens, bad, opos at chunk start).  A chunk is
-bad on an invalid code, a read past ``n_words``, a match without room for
-its index, ``midx == 0``, an unwritten ring slot, ``src >= opos``,
-``opos > encpos`` or ``opos != encpos`` at its end -- the rejections of the
-JAX decoder.  After the first bad chunk the rest are not decoded and are
-marked bad.
+Status per chunk is (opos, tokens, bad, opos at chunk start, matches,
+matches whose source lies at most ``WINDOW`` bytes back -- read from the
+window on the card).  A chunk is bad on an invalid code, a read past
+``n_words``, a match without room for its index, ``midx == 0``, an
+unwritten ring slot, ``src >= opos``, ``opos > encpos`` or ``opos !=
+encpos`` at its end -- the rejections of the JAX decoder.  After the first
+bad chunk the rest are not decoded and are marked bad.
 """
 
 from __future__ import annotations
@@ -45,8 +51,12 @@ import torch
 
 from . import mtf as mops
 from .entropy_kernel import M32, host_to, stage_chunks, tier_lookup
-from .resolve_kernel import RING, Resolver
+from .resolve_kernel import RING, WINDOW, Resolver
 from ..utils import metrics
+
+PIECE = 128            # csrc/decode_fused.cu: kPiece entries a piece (a batch)
+ENTRY_RING = 2048      # csrc/decode_fused.cu: kTok entries in the entry ring
+STATUS = 6             # status words a chunk
 
 
 def prepare_fused(len1, len2, payloads, rlens, encpos, new_block, out_base,
@@ -70,7 +80,8 @@ def prepare_fused(len1, len2, payloads, rlens, encpos, new_block, out_base,
 
 def fused_decode(meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base,
                  out_size: int):
-    """Decode every chunk; returns (out u8 [out_size], status i32 [C, 4]).
+    """Decode every chunk; returns (out u8 [out_size], status i32
+    [C, STATUS]).
 
     CUDA tensors launch the kernel; CPU tensors run the plain version.
     """
@@ -101,7 +112,8 @@ def fused_decode(meta, order1, lut1, lut2, mtf0, mtfnext, words, out_base,
             out = torch.zeros(max(out_size, 1), dtype=torch.uint8,
                               device=dev)
             ring = torch.empty(256 * RING, dtype=torch.int32, device=dev)
-            status = torch.empty((C, 4), dtype=torch.int32, device=dev)
+            status = torch.empty((C, STATUS), dtype=torch.int32,
+                                 device=dev)
             err = _build.lib().zlt_decode_fused(
                 meta.data_ptr(), order1.data_ptr(), lut1.data_ptr(),
                 lut2.data_ptr(), mtf0.data_ptr(), mtfnext.data_ptr(),
@@ -122,14 +134,14 @@ def fused_decode_plain(meta, order1, lut1, lut2, mtf0, mtfnext, words,
     C = meta.shape[0]
     o = bytearray(max(out_size, 1))
     r = Resolver(o, mtf0, mtfnext.cpu().tolist())
-    status = torch.zeros((C, 4), dtype=torch.int32)
+    status = torch.zeros((C, STATUS), dtype=torch.int32)
     wl = words.cpu().tolist()
     metal = meta[:, :4].cpu().tolist()
     bases = out_base.cpu().tolist()
     stop = False
     for c in range(C):
         if stop:
-            status[c] = torch.tensor([0, 0, 1, 0])
+            status[c] = torch.tensor([0, 0, 1, 0, 0, 0])
             continue
         m = metal[c]
         n_words, rlen, wbase, encpos, new_block = m[0][:5]
@@ -186,6 +198,7 @@ def fused_decode_plain(meta, order1, lut1, lut2, mtf0, mtfnext, words,
                 break
             emitted += 1
         bad = bad or (wpos * 32 - nbits > n_words * 32) or r.opos != encpos
-        status[c] = torch.tensor([r.opos, emitted, int(bad), opos0])
+        status[c] = torch.tensor([r.opos, emitted, int(bad), opos0,
+                                  r.matches, r.near])
         stop = bad
     return torch.frombuffer(o, dtype=torch.uint8)[:out_size], status

@@ -59,7 +59,7 @@ from ..tables import MATCH_MIN_LEN
 from . import mtf as mops
 
 RING = 4096
-WINDOW = 1 << 17       # csrc/resolve.cu: the output window, ResolverT<17>
+WINDOW = 1 << 17       # resolve.cu, decode_fused.cu: the window, ResolverT<17>
 TOKEN_RING = 4096      # csrc/resolve.cu: kTok tokens in the token ring
 
 
@@ -127,7 +127,9 @@ class Resolver:
     """The ROLZ resolve state machine of the plain versions of K2 and K3
     (the kernels share ``csrc/rolz.cuh``): the output as a bytearray, the
     MTF table as a bytearray, the ring and word-MRU as lists.  Each step
-    returns False, before writing, where the chunk is corrupt."""
+    returns False, before writing, where the chunk is corrupt.  A chunk's
+    matches and those whose source lies at most ``WINDOW`` bytes back (in
+    the kernels' output window) are counted in ``matches`` and ``near``."""
 
     def __init__(self, out: bytearray, table: torch.Tensor, nxt: list):
         self.o = out
@@ -138,13 +140,15 @@ class Resolver:
         self.opos = 0
 
     def start_chunk(self, base: int, new_block: int, encpos: int) -> int:
-        """Reset the word-MRU, and at a new block the ring, the heads and
-        the position; returns the position in the block at chunk start."""
+        """Reset the word-MRU and the counts, and at a new block the ring,
+        the heads and the position; returns the position in the block at
+        chunk start."""
         if new_block:
             self.ring = [0] * (256 * RING)
             self.head = [0] * 256
             self.opos = 0
         self.mru = [0] * 512
+        self.matches = self.near = 0
         self.base, self.encpos = base, encpos
         p = base + self.opos
         self.l1 = self.o[p - 1] if self.opos >= 1 else 0
@@ -173,6 +177,8 @@ class Resolver:
         mlen = t - 258 + MATCH_MIN_LEN
         if midx == 0 or src == 0 or src >= opos or opos + mlen > self.encpos:
             return False
+        self.matches += 1
+        self.near += opos - src <= WINDOW
         p, s = self.base + opos, self.base + src
         if opos - src >= mlen:
             o[p:p + mlen] = o[s:s + mlen]

@@ -12,7 +12,7 @@ plain version:
   PL1 ``resident``      (``probe_vmem`` :30) does per-lane state stay on
       chip?  Here that is the 50 MB L2: a dependent chase of 2**20 steps
       over a random single cycle at 16 KB .. 256 MB, with no dynamic
-      shared memory and with K3's 90,304 bytes (which shrink L1);
+      shared memory and with K3's 231,192 bytes (which shrink L1);
   PL2 ``smem_ceiling``  (``probe_smem`` :50) the dynamic shared-memory
       ceiling: 48 .. 227 KB launch, the opt-in limit + 1 byte is refused;
   PL3/PL4 ``dyn_shift`` (``probe_dyn_roll`` :70, ``probe_dyn_roll2d`` :88)
@@ -47,7 +47,7 @@ STEPS = 1 << 20
 KB, MB = 1024, 1 << 20
 RESIDENT_BYTES = (16 * KB, 192 * KB, 4 * MB, 10 * MB + MB // 2, 21 * MB,
                   42 * MB, 84 * MB, 256 * MB)
-K3_SMEM = 65536 + 4 * (4096 + 1024 + 256 + 48 + 512 + 256)  # decode_fused.cu
+K3_SMEM = 231_192     # csrc/decode_fused.cu: kSmem
 SMEM_KB = (48, 64, 128, 192, 227)
 X = 0x5A17C0DE
 

@@ -1,5 +1,5 @@
-"""What K2 and K5 walk: counts of a stream's units, the host's view of the
-two kernels' loads.
+"""What K2, K3 and K5 walk: counts of a stream's units, the host's view of
+the kernels' loads.
 
     python -m libzling_tpu_torch.probes.stream_stats [--levels 0 4]
 
@@ -20,7 +20,7 @@ context, in its block.  Printed, per level, as one JSON object a line:
   * the match index's quantiles and its share under 128 and 256 (what a
     shared cache of each context's newest ring slots could hold);
   * the source distance d = opos - src: quantiles and the share within
-    32, 64 and 128 KiB (K2's output window);
+    32, 64 and 128 KiB (K2's and K3's output window);
   * the busiest context's share of the literals, and of the ring reads the
     8 busiest contexts make (K5 walks each context's literals as one
     chain; its time is the busiest chain's);
@@ -113,8 +113,12 @@ def sources(pos, ctx, kind, midx, block):
     return m, pos[order[gstart[m] + rank[m] - midx[m]]]
 
 
-def stats(data: bytes, level: int) -> dict:
-    s = gd.parse(engine.encode(data, level))
+def walk(s, data: bytes) -> dict:
+    """The parsed stream ``s`` (``group_decode.parse``) of ``data`` unit by
+    unit: ``units_of``'s kind, length, match index and block, each unit's
+    position in its block and context, each block's first unit and unit
+    count, and the matches' units (``m``) and source distances d = opos -
+    src (``d``), in stream order."""
     k1, _ = s.stage_split(0, len(s.rlens), "cpu")
     tokens = ek.decode_chunks(*k1)[0].numpy()
     kind, length, midx, block = units_of(tokens, s.rlens, s.new_block,
@@ -131,6 +135,15 @@ def stats(data: bytes, level: int) -> dict:
     d = pos[m] - src
     assert (src > 0).all() and (d > 0).all()
     assert (buf[s.block_base[block[m]] + src] == buf[at[m]]).all()
+    return dict(kind=kind, length=length, midx=midx, block=block, pos=pos,
+                ctx=ctx, first=first, count=count, m=m, d=d)
+
+
+def stats(data: bytes, level: int) -> dict:
+    s = gd.parse(engine.encode(data, level))
+    w = walk(s, data)
+    kind, midx, ctx, m, d = (w[k] for k in ("kind", "midx", "ctx", "m", "d"))
+    first, count = w["first"], w["count"]
     n = int((kind != 0).sum())
     lit = kind == 1
     lit_ctx = np.bincount(ctx[lit], minlength=256)

@@ -11,7 +11,9 @@ under the JAX package's names, ``enc.card_hands`` (hands of the MTF
 state from one card to another, ``Lanes.hand``) and ``enc.groups`` (groups
 framed by ``parallel/mesh.py::encode_groups``); the host pipeline adds
 ``enc.level_drops``, ``enc.blocks``, ``enc.chunks``, ``dec.blocks`` and
-``dec.chunks``.
+``dec.chunks``; the fused decode counts ``dec.matches`` (matches K3
+resolved) and ``dec.window_matches`` (those whose source it read in its
+shared-memory output window).
 
 ``stage`` marks one stage of the encode or decode path as a
 ``torch.profiler.record_function`` range named ``zling.<name>``: on the

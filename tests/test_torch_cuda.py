@@ -383,6 +383,55 @@ def test_resolve_design_cases_equal_plain(cuda, name):
             table = want[2]
 
 
+FUSED_CASES = {**RESOLVE_CASES, **smoke.fused_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(FUSED_CASES))
+def test_fused_design_cases_equal_plain(cuda, name):
+    # K3's output window, entry ring and batches: K2's cases and K3's own
+    # (chunks about a batch and the entry ring, long matches at batch
+    # ends); then the same with a corrupt chunk (the producer is ahead of
+    # the resolver when it stops)
+    chunks, _ = FUSED_CASES[name]
+    for cs in (chunks, smoke.corrupt_chunk(chunks)):
+        args, size, _ = tdevice.decode_args(smoke.cases_stream(cs), "cpu")
+        want = tfk.fused_decode_plain(*args, out_size=size)
+        got = tfk.fused_decode(*_on(args, cuda), out_size=size)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[0].cpu(), want[0])
+        assert bool(want[1][:, 2].any()) == (cs is not chunks)
+
+
+@pytest.mark.parametrize("level", [0, 4])
+def test_match_counters_on_card(cuda, level):
+    # K3 counts every match and those it read in its window, as the walk
+    # of the stream's units finds them (two blocks of 256 KiB, sources
+    # within and beyond the window)
+    from libzling_tpu_torch.probes import stream_stats
+    from libzling_tpu_torch.utils import metrics
+
+    data, stream = smoke.far_match_stream(level)
+    d = stream_stats.walk(tgd.parse(stream), data)["d"]
+    names = ("dec.matches", "dec.window_matches")
+    before = metrics.registry.snapshot()["counters"]
+    assert zt.decode(stream, device=cuda) == data
+    after = metrics.registry.snapshot()["counters"]
+    got = tuple(after.get(k, 0) - before.get(k, 0) for k in names)
+    assert got == (len(d), int((d <= tfk.WINDOW).sum()))
+    assert 0 < got[1] < got[0]
+
+
+@pytest.mark.parametrize("name", sorted(smoke.HEAD_MATCH))
+def test_head_byte_table_on_card(cuda, name):
+    # a match symbol as a block's head byte: the split path on the card
+    # takes its index as the next token, K3 reads no index bits
+    toks, encpos, split, fused = smoke.HEAD_MATCH[name]
+    stream = smoke.chunk_stream(toks, encpos)
+    assert zt.decode(stream, device=cuda) == fused
+    assert zt.decode(stream, device=cuda, fused=False) == split
+
+
 @pytest.mark.parametrize("name", sorted(smoke.relabel_cases()))
 def test_relabel_tile_cases_equal_plain(cuda, name):
     # K5's tiles: a context across a tile edge, a tile of literals only,

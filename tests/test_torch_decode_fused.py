@@ -2,7 +2,9 @@
 build against the JAX package: ``libzling_tpu.device.decode`` and the
 Pallas fused kernel in interpret mode, on multi-chunk, multi-block streams
 made with the executable spec's chunk primitives, and on crafted corrupt
-streams, which both must reject.
+streams, which both must reject.  Then streams aimed at K3's design
+(``chip_smoke.resolve_cases`` and ``fused_cases``) against ``spec.decode``,
+and the match counters against ``probes/stream_stats.py``'s walk.
 
 Tolerance: exact equality -- bytes, tables and statuses are integers.
 """
@@ -15,15 +17,19 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke as smoke
 from libzling_tpu import container, spec
 from libzling_tpu import device as jdevice
 from libzling_tpu.ops import decode_fused as jfk
 from libzling_tpu.ops import entropy_kernel as jek
 from libzling_tpu.tables import SENTINEL_LEN
 from libzling_tpu_torch import device as tdevice
+from libzling_tpu_torch import group_decode as tgd
 from libzling_tpu_torch.ops import decode_fused as tfk
 from libzling_tpu_torch.ops import entropy_kernel as tek
 from libzling_tpu_torch.ops import mtf as tmtf
+from libzling_tpu_torch.probes import stream_stats
+from libzling_tpu_torch.utils import metrics
 
 
 def _make_stream(pieces, level=1, max_tokens=300, enc=None) -> bytes:
@@ -195,3 +201,59 @@ def test_decode_bit_flips_agree_with_jax():
         assert results[0] == results[1], k
         outcomes.add(results[0] is ValueError)
     assert True in outcomes
+
+
+# ---- inputs aimed at K3's design (output window, entry ring, batches)
+
+DESIGN_CASES = {**smoke.resolve_cases(), **smoke.fused_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(DESIGN_CASES))
+def test_fused_design_cases_equal_spec(name):
+    # K2's cases (matches W - 1, W and W + 1 bytes back, chunk and block
+    # edges, overlapping copies, chunks about K2's token ring) and K3's
+    # (chunks about a batch and the entry ring, long matches at batch ends)
+    chunks, _ = DESIGN_CASES[name]
+    stream = smoke.cases_stream(chunks)
+    args, size, rlens = tdevice.decode_args(stream, "cpu")
+    out, status = tfk.fused_decode(*args, out_size=size)
+    assert out.numpy().tobytes() == spec.decode(stream)
+    assert status[:, 0].tolist() == [e for _, _, e in chunks]
+    assert status[:, 1].tolist() == rlens.tolist()
+    assert not status[:, 2].any()
+
+
+@pytest.mark.parametrize("name", sorted(DESIGN_CASES))
+def test_fused_corrupt_design_cases_like_spec(name):
+    # a match of index 0 in the middle chunk: spec rejects the stream, the
+    # plain K3 marks that chunk and every later one bad
+    chunks, _ = DESIGN_CASES[name]
+    bad = smoke.cases_stream(smoke.corrupt_chunk(chunks))
+    with pytest.raises(ValueError):
+        spec.decode(bad)
+    args, size, _ = tdevice.decode_args(bad, "cpu")
+    _, status = tfk.fused_decode(*args, out_size=size)
+    c = len(chunks) // 2
+    assert status[:, 2].tolist() == [0] * c + [1] * (len(chunks) - c)
+
+
+def _counts(fn):
+    """fn()'s result and what it added to the decode match counters."""
+    names = ("dec.matches", "dec.window_matches")
+    before = metrics.registry.snapshot()["counters"]
+    out = fn()
+    after = metrics.registry.snapshot()["counters"]
+    return out, tuple(after.get(k, 0) - before.get(k, 0) for k in names)
+
+
+@pytest.mark.parametrize("level", [0, 4])
+def test_match_counters_equal_the_stream_walk(level):
+    # two blocks of 256 KiB with sources within and beyond the window: a
+    # decode counts every match and those within the window, as the walk
+    # of the stream's units finds them
+    data, stream = smoke.far_match_stream(level)
+    d = stream_stats.walk(tgd.parse(stream), data)["d"]
+    out, got = _counts(lambda: tdevice.decode(stream, device="cpu"))
+    assert out == data
+    assert got == (len(d), int((d <= tfk.WINDOW).sum()))
+    assert 0 < got[1] < got[0]

@@ -26,6 +26,7 @@ from libzling_tpu import spec
 from libzling_tpu.ops import resolve_kernel as jrk
 from libzling_tpu.tables import SENTINEL_LEN
 from libzling_tpu_torch import device as tdevice
+from libzling_tpu_torch.ops import decode_fused as tfk
 from libzling_tpu_torch.ops import mtf as tmtf
 from libzling_tpu_torch.ops import resolve_kernel as trk
 
@@ -154,10 +155,7 @@ def _craft_raw_chunk(tokens, encpos):
 # a match symbol as one of a block's two raw head bytes: the split decoders
 # take its index as the next token and agree with spec.decode; the fused
 # decoders never read the index bits
-HEAD_MATCH = {
-    "first_byte": ([258, 5, 65, 66], 4, b"\x02\x056L", b"\x02ALL"),
-    "second_byte": ([65, 258, 7, 66, 67], 5, b"A\x02rL7", b"A\x02LL7"),
-}
+HEAD_MATCH = smoke.HEAD_MATCH
 
 
 @pytest.mark.parametrize("name", sorted(HEAD_MATCH))
@@ -206,14 +204,20 @@ def test_resolve_design_cases_equal_spec(name):
 
 
 def test_window_and_token_ring_match_the_kernel_source():
-    src = (pathlib.Path(trk.__file__).parent.parent / "csrc" /
-           "resolve.cu").read_text()
+    # K2's window and token ring (resolve.cu), K3's window, pieces, entry
+    # ring and status row (decode_fused.cu)
+    csrc = pathlib.Path(trk.__file__).parent.parent / "csrc"
     log = trk.WINDOW.bit_length() - 1
     assert trk.WINDOW == 1 << log
-    assert f"using Res = ResolverT<{log}>;" in src
-    piece = int(re.search(r"constexpr int kPiece = (\d+);", src)[1])
-    pieces = int(re.search(r"constexpr int kPieces = (\d+);", src)[1])
-    assert piece * pieces == trk.TOKEN_RING
+    for name, ring in (("resolve.cu", trk.TOKEN_RING),
+                       ("decode_fused.cu", tfk.ENTRY_RING)):
+        src = (csrc / name).read_text()
+        assert f"using Res = ResolverT<{log}>;" in src
+        piece = int(re.search(r"constexpr int kPiece = (\d+);", src)[1])
+        pieces = int(re.search(r"constexpr int kPieces = (\d+);", src)[1])
+        assert piece * pieces == ring
+    assert piece == tfk.PIECE
+    assert f"constexpr int kStatus = {tfk.STATUS};" in src
 
 
 @pytest.mark.parametrize("name", sorted(RESOLVE_CASES))
