@@ -195,9 +195,12 @@ class Part:
 def validate(views, sched: np.ndarray, entry: int, level: int):
     """Serial schedule validation over a group's runs in block order
     (mesh.py:534-556): returns (exit level, whether ``sched`` [blocks,
-    max_chunks] was corrected and the group must run again)."""
+    max_chunks] was corrected and the group must run again, the chunks
+    whose coded size dropped the level after them to 0: the host
+    pipeline's ``enc.level_drops``, ``native.engine.adaptive_drop``)."""
     expected = entry
     any_fix = False
+    drops = 0
     row = 0
     for v in views:
         c = 0
@@ -210,11 +213,12 @@ def validate(views, sched: np.ndarray, entry: int, level: int):
                 ep = int(v.encpos[c])
                 olen = HEADER + _payload_bytes(int(v.bits[c]))
                 expected = 0 if olen / (ep - prev_end + 1) > 0.95 else level
+                drops += expected == 0 and level != 0
                 prev_end = ep
                 c += 1
             sched[row, nc:] = expected
             row += 1
-    return expected, any_fix
+    return expected, any_fix, drops
 
 
 def frame(views) -> bytes:

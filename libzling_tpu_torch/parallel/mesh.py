@@ -21,8 +21,9 @@ the d-th run of ``blocks_per_device`` consecutive blocks
                 host, then canonical codes and packing;
   [host]        serial schedule validation in block order over every run;
                 on a fix the group runs again from its carried state
-                (counted as ``enc.schedule_mispredicts``); the host fetches
-                only the realized words, then frames.
+                (counted as ``enc.schedule_mispredicts``, the span
+                ``zling.enc.rerun``); the host fetches only the realized
+                words, then frames.
 
 1-deep look-ahead (mesh.py:438-477): group g+1's K4 and its K5 chain are
 queued from g's device-resident exit state before g's host stages run,
@@ -292,14 +293,15 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
     Every stage is a span (``metrics.stage``): ``zling.enc.dispatch``
     (within it ``enc.launch``, one K4 + K5 pass, with ``enc.hand`` for
     each hand of the MTF state between two cards, and ``enc.stage``, the
-    runs' buffers), ``enc.launch`` alone for a re-run after a fix,
-    ``enc.failover``, and the stages below as ``zling.enc.<stage>``
-    (``Part.finish`` adds ``enc.wait``, ``Part.tokenize`` /
-    ``Part.relabel`` ``enc.tokenize`` / ``enc.relabel``).  No span stays
-    open across the ``yield``.
+    runs' buffers), ``enc.rerun`` around each re-run after a fix (its
+    ``enc.launch`` within), ``enc.failover``, and the stages below as
+    ``zling.enc.<stage>`` (``Part.finish`` adds ``enc.wait``,
+    ``Part.tokenize`` / ``Part.relabel`` ``enc.tokenize`` /
+    ``enc.relabel``).  No span stays open across the ``yield``.
 
     Each group framed counts ``enc.groups`` (one a ``zling.enc.frame``
-    span).
+    span), and ``enc.level_drops`` the chunks of its held pass whose coded
+    size dropped the level after them to 0 (``group_encode.validate``).
     """
     if level not in LEVEL_PARAMS:
         raise ValueError("level must be 0..6")
@@ -437,13 +439,16 @@ def encode_groups(groups: Iterable[bytes], level: int, lanes: Lanes,
             with metrics.stage("enc.gather_pack_meta"):
                 views = lanes.gather(done, cur["n"])
             with metrics.stage("enc.validate"):
-                expected, any_fix = checked(cur, lambda: ge.validate(
+                expected, any_fix, drops = checked(cur, lambda: ge.validate(
                     views, cur["sched"], cur["entry"], level))
             if not any_fix:
                 break
-            launch(cur)
+            with metrics.stage("enc.rerun"):
+                launch(cur)
         if passes > 1:
             metrics.registry.count("enc.schedule_mispredicts", passes - 1)
+        if drops:
+            metrics.registry.count("enc.level_drops", drops)
         with metrics.stage("enc.gather_words"):
             views = lanes.gather(checked(cur, lambda: {
                 i: p.view_with_words() for i, p in cur["parts"].items()}),

@@ -4,16 +4,22 @@ region.
 Counterpart of ``libzling_tpu/utils/metrics.py``: a process-wide registry
 of named counters, cheap enough to leave on (the reference's
 compile-gated debug counters, src/libzling_debug.h:38-49).  The lanes
-count ``enc.schedule_mispredicts`` (extra validation passes of a group),
-``enc.pipeline_redispatch`` (look-ahead groups launched again) and
-``enc.group_failover`` (groups encoded again on the host, ``elastic``)
-under the JAX package's names, ``enc.card_hands`` (hands of the MTF
-state from one card to another, ``Lanes.hand``) and ``enc.groups`` (groups
-framed by ``parallel/mesh.py::encode_groups``); the host pipeline adds
-``enc.level_drops``, ``enc.blocks``, ``enc.chunks``, ``dec.blocks`` and
-``dec.chunks``; the fused decode counts ``dec.matches`` (matches K3
-resolved) and ``dec.window_matches`` (those whose source it read in its
-shared-memory output window).
+count ``enc.schedule_mispredicts`` (extra validation passes of a group,
+each a ``zling.enc.rerun`` span), ``enc.pipeline_redispatch`` (look-ahead
+groups launched again) and ``enc.group_failover`` (groups encoded again
+on the host, ``elastic``) under the JAX package's names,
+``enc.card_hands`` (hands of the MTF state from one card to another,
+``Lanes.hand``) and ``enc.groups`` (groups framed by
+``parallel/mesh.py::encode_groups``).  ``enc.level_drops`` counts the
+chunks whose coded size exceeded 0.95 of their input at a level above 0,
+so that the chunk after them drops to level 0 (src/libzling.cpp:261-266):
+the lanes once a group, from the pass whose schedule held; the host
+pipeline once a pass of a block, so a block tokenized again after a
+mispredict counts the drops before the fix again, as the JAX package
+does.  The host pipeline adds ``enc.blocks``, ``enc.chunks``,
+``dec.blocks`` and ``dec.chunks``; the fused decode counts
+``dec.matches`` (matches K3 resolved) and ``dec.window_matches`` (those
+whose source it read in its shared-memory output window).
 
 ``stage`` marks one stage of the encode or decode path as a
 ``torch.profiler.record_function`` range named ``zling.<name>``: on the

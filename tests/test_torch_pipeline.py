@@ -2,8 +2,9 @@
 against the JAX package's (``libzling_tpu.pipeline``): streams at e0-e6 on
 the small cases and mixed blobs, across a 16 MiB block edge, through
 schedule mispredicts (with equal ``enc.schedule_mispredicts`` and
-``enc.level_drops`` deltas) and through a carry split at a block edge
-(equal carries); the match-loop counters of the counting engine build;
+``enc.level_drops`` deltas, and the lanes' count of the same drops beside
+them) and through a carry split at a block edge (equal carries); the
+match-loop counters of the counting engine build;
 every corrupt-stream class with the JAX messages and no buffer lost;
 four threads at once; and the bound on the blocks (encoder) and chunks
 (decoder) in flight, which makes the JAX pipeline's deadlock (ROADMAP,
@@ -33,12 +34,13 @@ from libzling_tpu import pipeline as jpipeline
 from libzling_tpu import spec
 from libzling_tpu.native import engine as jengine
 from libzling_tpu.utils import metrics as jmetrics
-from libzling_tpu_torch import pipeline
+from libzling_tpu_torch import api, pipeline
 from libzling_tpu_torch.native import engine
 from libzling_tpu_torch.tables import BLOCK_SIZE_IN
 from libzling_tpu_torch.utils import metrics
 
 from .test_spec_vs_reference import CASES, _mixed_blob
+from .test_torch_spans import drops_in
 
 LEVELS = range(7)
 TIMEOUT_S = 60
@@ -128,6 +130,29 @@ def test_mispredicts_equal_the_jax_pipeline(name, level, drops,
     assert mine == theirs == {"enc.level_drops": drops,
                               "enc.schedule_mispredicts": mispredicts}
     assert pipeline.decode(got) == data
+
+
+@pytest.mark.parametrize("name,pipeline_drops,lanes_drops", [
+    ("alternating", 1, 1), ("long noise", 2, 1)])
+def test_the_lanes_count_the_level_drops_of_the_held_pass(
+        name, pipeline_drops, lanes_drops):
+    # the card path's code on the CPU (api.encode, one group) at the
+    # canonical geometry gives the pipeline's bytes and counts each drop
+    # once, from the pass that held: the stream's own count.  Where the
+    # pipeline tokenizes a block again ("long noise"), it counts the drop
+    # before the fix on both passes
+    data = {"alternating": _alternating, "long noise": _long_noise}[name]()
+    enc = pipeline.ParallelEncoder()
+    try:
+        want, (mine, _) = _deltas(lambda: enc.encode(data, 3))
+    finally:
+        enc.close()
+    got, (lanes, _) = _deltas(lambda: api.encode(data, 3, device="cpu"))
+    assert got == want
+    assert mine["enc.level_drops"] == pipeline_drops
+    assert lanes["enc.level_drops"] == lanes_drops == drops_in(got, 3)
+    assert lanes["enc.schedule_mispredicts"] == mine[
+        "enc.schedule_mispredicts"] == (name == "long noise")
 
 
 def test_carry_split_at_a_block_edge():

@@ -1,8 +1,11 @@
 """The port's stage spans (``utils/metrics.stage``) on the CPU, read back
 from the Chrome trace that ``utils/metrics.trace`` writes: every encode
 and decode stage appears, nested in its call's top span; the group loop's
-K4 + K5 passes agree with its counters; no span stays open across the
-group loop's ``yield``; and the spans change no byte.
+K4 + K5 passes agree with its counters; each re-run after a schedule fix
+is a ``zling.enc.rerun`` span, and the lanes' ``enc.level_drops`` is the
+count of chunks the adaptive level drop fired on (``spec.encode``'s, and
+the stream's own); no span stays open across the group loop's ``yield``;
+and the spans change no byte.
 
 Tolerance: exact -- span names, counts and nesting are read from one
 thread's timeline; streams and outputs are bytes.
@@ -16,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark.harness import corpus
 from chip_smoke import PartFaults, chunk_stream
 from libzling_tpu import spec
 from libzling_tpu_torch import api
+from libzling_tpu_torch.container import parse
 from libzling_tpu_torch.parallel import mesh, mesh_encode
 from libzling_tpu_torch.utils import metrics
 
@@ -53,6 +58,28 @@ def _ends_in_noise() -> bytes:
     text = b" ".join(words[i] for i in rng.integers(0, 4, 3000))
     return text[:5000] + bytes(rng.integers(0, 256, 1000, np.uint8)) \
         + text[5000:9000]
+
+
+def _mixed() -> bytes:
+    # the mixed-e4 cell's corpus scaled to GEOM: the order-3 Markov text
+    # with one run of random bytes in each 3000-byte span (there 1 MiB in
+    # each 16 MiB block), at offsets drawn from a large seed
+    return corpus.generate({"bytes": 24000, "base": "markov3", "inserts": [
+        {"kind": "random", "bytes": 900, "per": 3000}]}, 2**33 + 7)
+
+
+def drops_in(stream: bytes, level: int) -> int:
+    """The chunks of ``stream`` whose coded size exceeds 0.95 of their
+    input (src/libzling.cpp:261-266), where ``level`` is above 0."""
+    if level == 0:
+        return 0
+    chunks, _ = parse(stream)
+    n, prev = 0, (-1, 0)
+    for c in chunks:
+        start = prev[1] if prev[0] == c.block_id else 0
+        n += len(c.payload) / (c.encpos - start + 1) > 0.95
+        prev = (c.block_id, c.encpos)
+    return n
 
 
 def traced(fn, tmp_path, name="region"):
@@ -95,11 +122,12 @@ def test_encode_spans_nest_under_the_call(name, tmp_path):
     got, spans = traced(lambda: api.encode(data, 2, device="cpu", **GEOM),
                         tmp_path)
     assert got == spec.encode(data, 2, **GEOM)
-    assert set(names(spans)) == ENCODE_SPANS | {"zling.encode"}
-    assert names(spans).count("zling.encode") == 1
     reruns = metrics.registry.snapshot()["counters"].get(
         "enc.schedule_mispredicts", 0)
     assert (reruns > 0) == (name == "ends in noise")
+    assert set(names(spans)) == ENCODE_SPANS | {"zling.encode"} | (
+        {"zling.enc.rerun"} if reruns else set())
+    assert names(spans).count("zling.encode") == 1
     if not reruns:
         # a clean group opens its stages once: at most about 20 spans
         assert len(names(spans)) <= 20
@@ -134,25 +162,66 @@ def test_k4_passes_are_frames_plus_the_counted_reruns(name, redispatch,
         counters.get("enc.pipeline_redispatch", 0)
 
 
+def assert_reruns_are_spans(spans, mispredicts: int) -> None:
+    """One ``zling.enc.rerun`` span a counted re-run, each holding one
+    ``enc.launch``; every launch outside a dispatch lies in a rerun."""
+    dispatches = [s for s in spans if s[0] == "zling.enc.dispatch"]
+    reruns = [s for s in spans if s[0] == "zling.enc.rerun"]
+    alone = [s for s in spans if s[0] == "zling.enc.launch"
+             and not any(inside(s, d) for d in dispatches)]
+    assert len(reruns) == len(alone) == mispredicts
+    for r in reruns:
+        assert sum(inside(s, r) for s in alone) == 1
+
+
 @pytest.mark.parametrize("name,D", [("ends in noise", 2), ("text", 1),
-                                    ("text", 3)])
+                                    ("text", 3), ("mixed", 1), ("mixed", 2)])
 def test_the_lanes_spans_hold_every_probed_stage(name, D, tmp_path):
     # mesh_encode over D CPU lanes keeps the bytes and opens a span for
-    # every stage; "ends in noise": a mispredict re-runs the first group,
-    # a launch outside any dispatch
-    data = _ends_in_noise() if name == "ends in noise" else _text()
+    # every stage; "ends in noise" and "mixed": a mispredict re-runs a
+    # group, a launch outside any dispatch inside a rerun span
+    data = {"ends in noise": _ends_in_noise, "text": _text,
+            "mixed": _mixed}[name]()
     metrics.registry.reset()
     got, spans = traced(lambda: mesh_encode(data, 2, ["cpu"] * D, **GEOM),
                         tmp_path)
     assert got == spec.encode(data, 2, **GEOM)
     assert PROBE_SPANS <= set(names(spans))
-    dispatches = [s for s in spans if s[0] == "zling.enc.dispatch"]
-    reruns = [s for s in spans if s[0] == "zling.enc.launch"
-              and not any(inside(s, d) for d in dispatches)]
     mispredicts = metrics.registry.snapshot()["counters"].get(
         "enc.schedule_mispredicts", 0)
-    assert len(reruns) == mispredicts
-    assert (mispredicts > 0) == (name == "ends in noise")
+    assert_reruns_are_spans(spans, mispredicts)
+    assert (mispredicts > 0) == (name != "text")
+
+
+@pytest.mark.parametrize("route", ["api", "lanes1", "lanes2"])
+@pytest.mark.parametrize("level", [0, 4])
+def test_the_level_drops_are_counted_once_from_the_held_pass(route, level,
+                                                             tmp_path):
+    # the mixed-e4 cell's input at GEOM through the card path's code on
+    # the CPU: api.encode (one group of 8 blocks), and the lanes over one
+    # and two entries (groups of one block an entry, the look-ahead); the
+    # drop re-runs groups, and the drops are counted once a group from the
+    # pass that held: spec.encode's count, read back from the stream too
+    data = _mixed()
+    stats = spec.EncodeStats()
+    want = spec.encode(data, level, stats=stats, **GEOM)
+    metrics.registry.reset()
+    if route == "api":
+        fn = lambda: api.encode(data, level, device="cpu", **GEOM)
+    else:
+        fn = lambda: mesh_encode(data, level, ["cpu"] * int(route[-1]),
+                                 **GEOM)
+    got, spans = traced(fn, tmp_path)
+    assert got == want
+    counters = metrics.registry.snapshot()["counters"]
+    mispredicts = counters.get("enc.schedule_mispredicts", 0)
+    assert_reruns_are_spans(spans, mispredicts)
+    drops = counters.get("enc.level_drops", 0)
+    assert drops == drops_in(got, level)
+    if level:
+        assert drops == stats.level_drops > 0 and mispredicts > 0
+    else:
+        assert drops == mispredicts == 0
 
 
 def test_a_failover_is_a_span(tmp_path):
